@@ -6,22 +6,31 @@
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. device: the card's name and power limit, its properties beside the
-     constants the capacity model uses; build both CUDA kernels from
-     src/repro_torch/kernels/csrc/.
+     constants the capacity model uses; build the three CUDA kernels from
+     src/repro_torch/kernels/csrc/, one nvcc each, all started together.
   2. each kernel's wrapper against its plain PyTorch version on the card, at
-     serving shapes and at odd ones, bf16 / int8 / int4 / f32 pools.
+     serving shapes and at odd ones: bf16 / int8 / int4 / f32 pools for the
+     paged kernels; f32 / bf16, causal / window / chunk, G = 1, 2, 4,
+     lengths no tile divides and padded rows for flash attention (lse too).
   3. the main path at full width: mistral-nemo-12b, all 40 layers, random
      bf16 weights from a seed; the capacity model sizes the KV block pool;
-     the engine serves a seeded trace through PagedTorchExecutor (chunked
-     prefill, compacted decode, strict allocator audit), with a bf16 pool
-     and again with an int8 pool. Launch counters are zeroed just before
-     and read just after.
+     the engine serves a seeded trace of short and long prompts through
+     PagedTorchExecutor (whole-prompt prefill for prompts up to the chunk,
+     chunked prefill above it, compacted decode, strict allocator audit),
+     with a bf16 pool and again with an int8 pool. Launch counters are
+     zeroed just before and read just after.
   4. the same trace at 4 layers with the kernels and with the plain
      versions: token streams equal, or the first divergence judged.
   5. predicted resident + transient bytes of phase 3's plan beside
      torch.cuda.max_memory_allocated() (printed, not asserted).
-  then: each kernel timed at the largest shape phase 3 launched it at,
-  beside its plain version and its bound; one JSON line `kernels`.
+  6. a fixed subset of the trace through greedy_generate at full width and
+     depth (whole-prompt prefill into ring caches through the flash kernel,
+     then ring decode), held against phase 3's bf16-pool streams, the first
+     divergence judged; then the int8 pool's token agreement with
+     serving.quality.token_agreement (printed, not asserted).
+  then: each kernel timed at the largest shape its path launched it at,
+  beside its plain version, its bound and (flash attention) the one
+  PyTorch call that computes the same function; one JSON line `kernels`.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -50,11 +59,14 @@ from repro_torch import hw as HW  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import DECODE, ShapeConfig, depth_variant  # noqa: E402
 from repro_torch.core import classifier as CL, predictor as PR  # noqa: E402
-from repro_torch.kernels import build, paged_decode, paged_prefill  # noqa: E402
+from repro_torch.kernels import (build, flash_attention,  # noqa: E402
+                                 paged_decode, paged_prefill)
 from repro_torch.models import ModelSettings, init_params  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.runtime import serve_step as SS  # noqa: E402
 from repro_torch.serving import (BlockAllocator, Engine, leak_check,  # noqa: E402
                                  synthetic_trace, trace_context)
+from repro_torch.serving import quality as Q  # noqa: E402
 from repro_torch.serving.executor import PagedTorchExecutor  # noqa: E402
 
 DEV = torch.device("cuda:0")
@@ -75,6 +87,9 @@ TOL_BF16 = 1e-3     # bf16 output: where the two f32 results straddle a
                     # and a dropped 16-row block moves it by about 0.01.
 RTOL_BF16 = 2.0 ** -7
 TOL_MASS = 1e-4     # per-block softmax share in [0, 1], f32 on both sides
+TOL_LSE = 1e-4      # flash lse: f32 on both sides from the same stored
+                    # inputs, values of order 10 (rows that see nothing:
+                    # -1e30 on both)
 # Phase 4: a token divergence between kernel and plain runs is accepted only
 # where the top-2 logit gap is below this fraction of that row's logit
 # standard deviation on both sides. The two runs differ by bf16 roundings of
@@ -83,6 +98,17 @@ TOL_MASS = 1e-4     # per-block softmax share in [0, 1], f32 on both sides
 # 131072 random logits has a typical gap of 0.2 of it, so a kernel that
 # attends to wrong rows diverges far above the bound.
 GAP_BOUND = 0.1
+# Phase 6: greedy_generate and the engine differ by more than kernels: ring
+# decode at width 1 against paged decode at the engine's widths (other
+# matrix-product shapes), whole-prompt against chunked prefill; bf16
+# roundings of all of it carried through 40 layers and through the cached
+# K/V of every earlier token. Its first divergences are judged by the
+# logits themselves: at the step where the two split (same tokens so far),
+# the rms of their difference over the rms spread of the greedy logits must
+# stay below this. Drift of roundings is expected at a few per cent; a path
+# that attends to wrong rows or positions leaves logits that agree only in
+# what the token embedding and the MLPs carry, tens of per cent apart.
+REL_BOUND = 0.1
 
 PEAK_BYTES_PER_S = HW.H100.hbm_bw            # 3.35e12
 PEAK_BF16_FLOPS = HW.H100.peak_flops_bf16    # 989e12
@@ -129,8 +155,8 @@ def phase_device():
         for line in build.build_log(name).splitlines():
             if "registers" in line or "error" in line.lower():
                 log(f"[1]   {name}: {line.strip()}")
-    build.library(paged_decode.SOURCE)
-    build.library(paged_prefill.SOURCE)
+    for mod in (paged_decode, paged_prefill, flash_attention):
+        build.library(mod.SOURCE)
     return smi
 
 
@@ -139,6 +165,7 @@ def phase_device():
 # ---------------------------------------------------------------------------
 
 _POOL_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
+MN = dict(K=8, G=4, hd=128)      # mistral-nemo-12b's attention heads
 
 
 def make_pool(gen, *, lens, K, hd, bs, m_blocks, codec, extra_blocks=3):
@@ -296,9 +323,34 @@ def prefill_case(gen, name, *, hist, clens, C, K, G, hd, bs, codec,
     return err
 
 
+def flash_case(gen, name, *, b, s, K, G, hd, qdt=torch.bfloat16,
+               window=None, chunk=None, lens=None, start=0):
+    """Kernel 3 against its plain version, out and lse. Row i holds
+    lens[i] positions start.. and is padded with -1 to s (queries and
+    keys); `start` > 0 puts positions away from the indices."""
+    lens = lens or [s] * b
+    pos = np.full((b, s), -1, np.int32)
+    for i, n in enumerate(lens):
+        pos[i, :n] = start + np.arange(n)
+    pos = torch.from_numpy(pos).to(DEV)
+    q = torch.randn((b, s, K * G, hd), generator=gen, device=DEV).to(qdt)
+    k = torch.randn((b, s, K, hd), generator=gen, device=DEV).to(qdt)
+    v = torch.randn((b, s, K, hd), generator=gen, device=DEV).to(qdt)
+    got, lse = flash_attention.flash_attention_fwd(
+        q, k, v, pos, pos, window=window, chunk=chunk, return_lse=True)
+    torch.cuda.synchronize()
+    want, lse_want = flash_attention.flash_attention_plain(
+        q, k, v, pos, pos, window=window, chunk=chunk, return_lse=True)
+    tol = TOL_F32 if qdt == torch.float32 else TOL_BF16
+    err = check_close(name, got, want, tol)
+    check_close(name + " lse", lse, lse_want, TOL_LSE)
+    return err
+
+
 def phase_kernels():
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
-    errs = {"paged_decode": 0.0, "paged_prefill": 0.0}
+    errs = {"paged_decode": 0.0, "paged_prefill": 0.0,
+            "flash_attention": 0.0}
     n = 0
     S = dict(K=8, G=4, hd=128, bs=16)      # mistral-nemo-12b serving shapes
 
@@ -376,10 +428,45 @@ def phase_kernels():
       bs=128, codec="bf16")
     p("bs6 C30 (tile rows not a multiple of 4)", hist=[50, 0], clens=[30, 17],
       C=30, K=2, G=4, hd=64, bs=6, codec="int4")
+
+    def f(name, **kw):
+        nonlocal n
+        errs["flash_attention"] = max(errs["flash_attention"],
+                                      flash_case(gen, "flash " + name, **kw))
+        n += 1
+
+    # the reference kernel tests' sweep (causal, window 48, chunk 64,
+    # single tile; G = 2, 4, 1)
+    for qdt in (torch.float32, torch.bfloat16):
+        t = "f32" if qdt == torch.float32 else "bf16"
+        f(f"s128 K2 G2 hd32 {t}", b=2, s=128, K=2, G=2, hd=32, qdt=qdt)
+        f(f"s128 K1 G4 hd16 window48 {t}", b=2, s=128, K=1, G=4, hd=16,
+          qdt=qdt, window=48)
+        f(f"s256 K2 G1 hd64 chunk64 {t}", b=2, s=256, K=2, G=1, hd=64,
+          qdt=qdt, chunk=64)
+        f(f"s64 K4 G1 hd8 window16 {t}", b=2, s=64, K=4, G=1, hd=8, qdt=qdt,
+          window=16)
+        # lengths no tile divides, at mistral-nemo's heads
+        f(f"s200 serve heads {t}", b=2, s=200, qdt=qdt, **MN)
+        f(f"s777 serve heads window300 {t}", b=1, s=777, qdt=qdt,
+          window=300, **MN)
+        # rows of different lengths padded with -1; positions off the
+        # indices
+        f(f"ragged w3 s300 {t}", b=3, s=300, lens=[300, 123, 7], qdt=qdt,
+          **MN)
+        f(f"offset positions s129 chunk64 {t}", b=2, s=129, start=1000,
+          lens=[129, 64], chunk=64, qdt=qdt, **MN)
+    f("hd256 G2 f32", b=2, s=100, K=2, G=2, hd=256, qdt=torch.float32)
+    f("G12 hd192 bf16", b=1, s=90, K=2, G=12, hd=192)
+    # the serving shapes: a whole-prompt prefill group, a greedy prefill
+    f("serve w8 s256", b=8, s=256, **MN)
+    f("greedy w1 s2048", b=1, s=2048, **MN)
     log(f"[2] {n} kernel-vs-plain cases agree on the card: max abs err "
         f"decode {errs['paged_decode']:.3e}, prefill "
-        f"{errs['paged_prefill']:.3e} (tolerances: f32 {TOL_F32:.0e}, bf16 "
-        f"{TOL_BF16:.0e} + {RTOL_BF16:.1e} * |value|, mass {TOL_MASS:.0e}; pool codes, payload and "
+        f"{errs['paged_prefill']:.3e}, flash {errs['flash_attention']:.3e} "
+        f"(tolerances: f32 {TOL_F32:.0e}, bf16 "
+        f"{TOL_BF16:.0e} + {RTOL_BF16:.1e} * |value|, mass {TOL_MASS:.0e}, "
+        f"lse {TOL_LSE:.0e}; pool codes, payload and "
         f"positions exact, scales <= 1 ULP)")
     return errs
 
@@ -399,8 +486,10 @@ MESH = {"data": 1, "model": 1}
 
 
 def make_trace(cfg):
+    """16 requests; prompts of up to CHUNK tokens take whole-prompt
+    prefill, longer ones chunked prefill."""
     return synthetic_trace(16, vocab_size=cfg.vocab_size, seed=SEED + 7,
-                           prompt_lens=(520, 777, 1024, 1500, 2048),
+                           prompt_lens=(64, 200, 256, 520, 1024, 2048),
                            gen_lens=(16, 24, 32), mean_interarrival=2.0)
 
 
@@ -440,19 +529,26 @@ def plan_pool(cfg, trace, context, kv_quant):
 
 class RecordingExecutor(PagedTorchExecutor):
     """Records, per argmax call, what each active row was fed (decode: the
-    input token and its position; chunk: the chunk's tokens and start), the
-    token chosen, and the row's top-2 logit gap as a fraction of the row's
-    logit standard deviation (phase 4 judges divergences with it)."""
+    input token and its position; chunk: the chunk's tokens and start;
+    whole-prompt prefill: the prompt and 0), the token chosen, the row's
+    top-2 logit gap as a fraction of the row's logit standard deviation
+    (phase 4 judges divergences with it) and, with `keep_logits`, the rows'
+    logits on the host (phase 6 judges with them)."""
 
-    def __init__(self, *a, **kw):
+    def __init__(self, *a, keep_logits=False, **kw):
         super().__init__(*a, **kw)
         self.calls = []
         self._fed = []
+        self.keep_logits = keep_logits
 
     def decode(self, tokens, positions, tables, lanes=None):
         rows = lanes if lanes is not None else range(len(tokens))
         self._fed = [(int(tokens[i]), int(positions[i])) for i in rows]
         return super().decode(tokens, positions, tables, lanes)
+
+    def prefill_batch(self, lanes, prompts, tables):
+        self._fed = [(tuple(int(t) for t in p), 0) for p in prompts]
+        return super().prefill_batch(lanes, prompts, tables)
 
     def prefill_chunks(self, lanes, chunks, starts, *a, **kw):
         self._fed = [(tuple(int(t) for t in c), int(s))
@@ -465,17 +561,19 @@ class RecordingExecutor(PagedTorchExecutor):
         top = lg.topk(2, dim=-1).values
         gap = ((top[:, 0] - top[:, 1]) / lg.std(dim=-1)).cpu().numpy()
         toks = torch.argmax(logits, dim=-1).cpu().numpy()
-        self.calls.append((self._fed, toks[:n].copy(), gap))
+        kept = lg.cpu() if self.keep_logits else None
+        self.calls.append((self._fed, toks[:n].copy(), gap, kept))
         return toks
 
 
 def serve(cfg, params, trace, context, n_blocks, kv_quant, backend="kernel",
-          record=False):
+          record=False, keep_logits=False):
+    kw = dict(keep_logits=keep_logits) if record else {}
     cls = RecordingExecutor if record else PagedTorchExecutor
     ex = cls(params, cfg, n_lanes=LANES, n_blocks=n_blocks, kv_block=KV_BLOCK,
              context=context, compact=True, chunk=CHUNK, kv_quant=kv_quant,
              settings=ModelSettings(attn=A.AttnSettings(backend=backend)),
-             device=DEV)
+             device=DEV, **kw)
     if not all(t.is_cuda for t in ex.pool["units"][0].values()):
         fail("the pool is not on the card")
     alloc = BlockAllocator(n_blocks, KV_BLOCK)
@@ -498,18 +596,17 @@ def serve(cfg, params, trace, context, n_blocks, kv_quant, backend="kernel",
     leaks = leak_check(alloc)
     if leaks:
         fail(f"allocator leaks: {leaks}")
-    if rep.prefill_calls != 0:
-        fail("whole-prompt prefill was called")
     return ex, rep, dt
 
 
 def phase_main(cfg, params):
     trace = make_trace(cfg)
-    if min(len(r.prompt) for r in trace) <= CHUNK:
-        fail("trace holds a prompt that would take whole-prompt prefill")
+    lens = [len(r.prompt) for r in trace]
+    if min(lens) > CHUNK or max(lens) <= CHUNK:
+        fail("the trace must hold prompts both up to and above the chunk")
     context = trace_context(trace)
-    counts, shapes, plans = {}, {}, {}
-    peak = {}
+    counts, shapes, plans, reps = {}, {}, {}, {}
+    peak, calls = {}, None
     for kv_quant in ("none", "int8"):
         plan = plan_pool(cfg, trace, context, kv_quant)
         plans[kv_quant] = plan
@@ -517,33 +614,50 @@ def phase_main(cfg, params):
         torch.cuda.reset_peak_memory_stats()
         paged_decode.launches = 0
         paged_prefill.launches = 0
+        flash_attention.launches = 0
         ex, rep, dt = serve(cfg, params, trace, context, plan["pool_blocks"],
-                            kv_quant)
+                            kv_quant, record=kv_quant == "none",
+                            keep_logits=kv_quant == "none")
         nd, npf = paged_decode.launches, paged_prefill.launches
+        nfa = flash_attention.launches
         peak[kv_quant] = torch.cuda.max_memory_allocated()
+        if rep.prefill_calls <= 0 or ex.chunk_calls <= 0:
+            fail(f"whole-prompt prefill calls {rep.prefill_calls}, chunk "
+                 f"calls {ex.chunk_calls}: both paths must run")
         want_d, want_p = cfg.n_layers * ex.decodes, cfg.n_layers * ex.chunk_calls
-        if nd <= 0 or npf <= 0 or nd != want_d or npf != want_p:
+        want_f = cfg.n_layers * rep.prefill_calls
+        if (nd <= 0 or npf <= 0 or nfa <= 0 or nd != want_d
+                or npf != want_p or nfa != want_f):
             fail(f"launch counters: decode {nd} (want {want_d}), prefill "
-                 f"{npf} (want {want_p})")
-        counts[kv_quant] = (nd, npf)
+                 f"{npf} (want {want_p}), flash {nfa} (want {want_f})")
+        counts[kv_quant] = (nd, npf, nfa)
         shapes[kv_quant] = {k: sorted(v) for k, v in ex._shapes.items()}
+        reps[kv_quant] = rep
+        if kv_quant == "none":
+            calls = ex.calls
         gen_tokens = sum(len(c.tokens) for c in rep.completions)
+        whole = sum(len(r.prompt) for r in trace if len(r.prompt) <= CHUNK)
         log(f"[3] {cfg.name} {cfg.n_layers} layers kv_quant={kv_quant}: "
             f"{len(rep.completions)}/{len(trace)} requests, "
-            f"{rep.prefill_tokens} prompt tokens in {ex.chunk_calls} chunk "
-            f"calls, {gen_tokens} generated tokens in {ex.decodes} decode "
+            f"{rep.prefill_tokens} prompt tokens ({whole} in "
+            f"{rep.prefill_calls} whole-prompt prefill calls, the rest in "
+            f"{ex.chunk_calls} chunk calls), {gen_tokens} generated tokens "
+            f"in {ex.decodes} decode "
             f"ticks, {rep.ticks} ticks, {dt:.2f}s wall; pool "
             f"{plan['pool_blocks']} blocks (capacity model allows "
             f"{plan['capacity_blocks']} under {HBM_BUDGET:.3e} B), peak "
             f"blocks {rep.peak_blocks}; kernel launches decode {nd} = "
             f"{cfg.n_layers} x {ex.decodes}, prefill {npf} = {cfg.n_layers} "
-            f"x {ex.chunk_calls}; audit clean; shapes {shapes[kv_quant]}; "
+            f"x {ex.chunk_calls}, flash {nfa} = {cfg.n_layers} x "
+            f"{rep.prefill_calls}; audit clean; shapes {shapes[kv_quant]}; "
             f"batch rows holding a request / rows computed at the bucketed "
-            f"widths: decode {ex.rows_real['decode_compact']}/"
+            f"widths: prefill {ex.rows_real['prefill']}/"
+            f"{ex.rows_computed['prefill']}, decode "
+            f"{ex.rows_real['decode_compact']}/"
             f"{ex.rows_computed['decode_compact']}, chunk "
             f"{ex.rows_real['chunk']}/{ex.rows_computed['chunk']}")
         del ex
-    return trace, context, counts, shapes, plans, peak
+    return trace, context, counts, shapes, plans, peak, reps, calls
 
 
 # ---------------------------------------------------------------------------
@@ -571,7 +685,8 @@ def phase_identity(cfg, params, trace, context):
     # the same input and chose different tokens (after that the request's
     # inputs differ, and so may everything it emits). Each one is judged.
     fresh = []
-    for i, ((fa, tok_a, gap_a), (fb, tok_b, gap_b)) in enumerate(zip(ca, cb)):
+    for i, ((fa, tok_a, gap_a, _), (fb, tok_b, gap_b, _)) in enumerate(
+            zip(ca, cb)):
         for j in range(len(fa)):
             if fa[j] == fb[j] and tok_a[j] != tok_b[j]:
                 fresh.append((i, j, int(tok_a[j]), int(tok_b[j]),
@@ -589,6 +704,164 @@ def phase_identity(cfg, params, trace, context):
             f"{ga:.4f}), plain token {b_} (gap {gb:.4f})")
     if worst >= GAP_BOUND:
         fail("token divergence at a decided argmax: a fault, not a near-tie")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: greedy_generate at full width and depth against the engine
+# ---------------------------------------------------------------------------
+
+def greedy_subset(trace):
+    """The requests phase 6 replays: the first whole-prompt one, the one
+    with the shortest prompt, the first with the longest (chunked), and
+    the first chunked one shorter than that."""
+    lens = {r.rid: len(r.prompt) for r in trace}
+    longest = max(lens.values())
+    picks = [next(r for r in lens if lens[r] <= CHUNK),
+             min(lens, key=lambda r: lens[r]),
+             next(r for r in lens if lens[r] == longest),
+             next(r for r in lens if CHUNK < lens[r] < longest)]
+    return tuple(dict.fromkeys(picks))
+
+
+def top2_gap(logits):
+    """Each row's top-2 logit gap as a fraction of the row's standard
+    deviation."""
+    lg = logits.float()
+    top = lg.topk(2, dim=-1).values
+    return ((top[:, 0] - top[:, 1]) / lg.std(dim=-1)).cpu().numpy()
+
+
+def greedy_gaps(cfg, params, prompt, n_steps, context, settings=None):
+    """greedy_generate's steps one by one, with row 0's tokens, top-2 gaps
+    and logits (on the host). `prompt` [b, p]: every row decodes its own
+    argmax."""
+    prefill = SS.make_prefill_step(cfg, settings)
+    decode = SS.make_decode_step(cfg, settings)
+    b = prompt.shape[0]
+    logits, cache = prefill(params, prompt, context=context)
+    toks, gaps, rows = [], [], []
+    for t in range(n_steps):
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(int(tok[0]))
+        gaps.append(float(top2_gap(logits)[0]))
+        rows.append(logits[0].float().cpu())
+        if t + 1 < n_steps:
+            pos = torch.full((b,), prompt.shape[1] + t, dtype=torch.int32,
+                             device=DEV)
+            logits, cache = decode(params, tok[:, None], pos, cache,
+                                   context=context)
+    return toks, gaps, rows
+
+
+def engine_row(calls, prompt, tokens, d):
+    """(gap, logits) of the engine row that chose tokens[d] (phase 3's
+    recorded calls): for d = 0 the row fed the whole prompt or its last
+    chunk, after that the row fed (tokens[d - 1], its position)."""
+    P = tuple(prompt)
+    for fed, toks, gap, kept in calls:
+        for j, f in enumerate(fed):
+            if d == 0:
+                hit = (isinstance(f[0], tuple) and f[1] + len(f[0]) == len(P)
+                       and f[0] == P[f[1]:])
+            else:
+                hit = f == (tokens[d - 1], len(P) + d - 1)
+            if hit and int(toks[j]) == tokens[d]:
+                return float(gap[j]), kept[j]
+    fail(f"no engine call chose token {d} of the stream {tokens[:d + 1]}")
+
+
+def rel_diff(a, b):
+    """rms(a - b) / rms spread of a, for two logit rows."""
+    return float((a - b).std() / a.std())
+
+
+def phase_greedy(cfg, params, trace, context, reps, calls):
+    rids = greedy_subset(trace)
+    by_rid = {r.rid: r for r in trace}
+    eng = {c.rid: list(c.tokens) for c in reps["none"].completions}
+    paged_decode.launches = 0
+    paged_prefill.launches = 0
+    flash_attention.launches = 0
+    outs = {}
+    t0 = time.time()
+    for rid in rids:
+        req = by_rid[rid]
+        prompt = torch.tensor([req.prompt], dtype=torch.int32, device=DEV)
+        outs[rid] = SS.greedy_generate(params, cfg, prompt, req.max_new,
+                                       context)[0].tolist()
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    nfa = flash_attention.launches
+    if (nfa != cfg.n_layers * len(rids) or paged_decode.launches
+            or paged_prefill.launches):
+        fail(f"greedy launches: flash {nfa} (want {cfg.n_layers} x "
+             f"{len(rids)}), paged decode {paged_decode.launches}, "
+             f"paged prefill {paged_prefill.launches} (want 0)")
+    judged = []
+    for rid in rids:
+        g, e = outs[rid], eng[rid]
+        if g == e:
+            continue
+        d = next(i for i in range(len(g)) if g[i] != e[i])
+        req = by_rid[rid]
+        prompt = torch.tensor([req.prompt], dtype=torch.int32, device=DEV)
+        toks, gaps, rows = greedy_gaps(cfg, params, prompt, req.max_new,
+                                       context)
+        if toks != g:
+            fail(f"request {rid}: greedy_generate and its steps one by one "
+                 "emit different tokens")
+        erows = [engine_row(calls, req.prompt, e, t) for t in range(d + 1)]
+        rel = [rel_diff(rows[t], erows[t][1]) for t in range(d + 1)]
+        judged.append((rid, d, g[d], e[d], gaps[d], erows[d][0], rel))
+    equal = sum(outs[r] == eng[r] for r in rids)
+    worst = max((max(j[6]) for j in judged), default=0.0)
+    log(f"[6] greedy_generate, {cfg.n_layers} layers, requests "
+        f"{list(rids)} (prompts "
+        f"{[len(by_rid[r].prompt) for r in rids]} tokens) in "
+        f"{dt:.2f}s: {equal}/{len(rids)} streams equal to the "
+        f"bf16-pool engine's; flash launches {nfa} = {cfg.n_layers} x "
+        f"{len(rids)}; largest rms logit difference up to a first "
+        f"divergence {worst:.4f} of the logits' rms spread (bound "
+        f"{REL_BOUND})")
+    for rid, d, a_, b_, ga, ge, rel in judged:
+        log(f"[6]   request {rid}: first divergence at token {d}: greedy "
+            f"{a_} (top-2 gap {ga:.4f} of its logit std), engine {b_} "
+            f"(gap {ge:.4f}); rms logit difference by token 0..{d}: "
+            f"{[round(x, 4) for x in rel]}")
+    if worst >= REL_BOUND:
+        fail("greedy and engine logits apart by more than rounding drift")
+    # controls: the greedy path against itself at batch 2 (the same prompt
+    # twice: other matrix-product shapes, nothing else), and with the flash
+    # kernel's plain version in its prefill — the drift that roundings
+    # alone leave at this depth
+    req = by_rid[rids[0]]
+    one = torch.tensor([req.prompt], dtype=torch.int32, device=DEV)
+    t1, _, r1 = greedy_gaps(cfg, params, one, req.max_new, context)
+    naive = ModelSettings(attn=A.AttnSettings(backend="naive"))
+    for name, (t2, _, r2) in (
+            ("at batch 2", greedy_gaps(cfg, params, one.repeat(2, 1),
+                                       req.max_new, context)),
+            ("with the plain prefill attention",
+             greedy_gaps(cfg, params, one, req.max_new, context, naive))):
+        n = next((i for i in range(len(t1)) if t1[i] != t2[i]), len(t1))
+        rel = [round(rel_diff(r1[t], r2[t]), 4)
+               for t in range(min(n + 1, len(t1)))]
+        log(f"[6] control, request {req.rid}: greedy {name} against "
+            f"greedy: tokens equal up to {n} of {len(t1)}; rms logit "
+            f"difference by token: {rel}")
+    ref_cache = {(tuple(by_rid[r].prompt), by_rid[r].max_new):
+                 np.asarray(outs[r], np.int32) for r in rids}
+    t0 = time.time()
+    agree = {q: Q.token_agreement(params, cfg, trace, reps[q],
+                                  context=context, ref_cache=ref_cache,
+                                  device=DEV) for q in ("int8", "none")}
+    log(f"[6] token_agreement against greedy_generate, all "
+        f"{len(trace)} requests ({time.time() - t0:.2f}s): int8 pool "
+        f"{agree['int8'].describe()}, first divergences "
+        f"{list(agree['int8'].first_divergence)}; bf16 pool "
+        f"{agree['none'].describe()}")
+    s = max(len(by_rid[r].prompt) for r in rids)
+    return nfa, (1, s)
 
 
 # ---------------------------------------------------------------------------
@@ -668,11 +941,65 @@ def time_prefill(cfg, gen, w, mb, codec):
     return ms, plain, nbytes, flops
 
 
-def kernel_rows(cfg, counts, shapes, errs):
+def time_flash(cfg, gen, w, s):
+    """Flash attention at [w, s] causal, mistral-nemo's heads, bf16: the
+    kernel, its plain version and scaled_dot_product_attention (the one
+    PyTorch call that computes the same function; timed here, never called
+    by the port), and the bytes and operations the function needs."""
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = torch.randn((w, s, H, hd), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    k = torch.randn((w, s, K, hd), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    v = torch.randn((w, s, K, hd), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    pos = torch.arange(s, dtype=torch.int32, device=DEV)[None].repeat(w, 1)
+    args = (q, k, v, pos, pos)
+    ms = time_ms(lambda: flash_attention.flash_attention_fwd(*args), 10)
+    plain = time_ms(lambda: flash_attention.flash_attention_plain(*args), 3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    lib = time_ms(sdpa, 10)
+    dev = float((sdpa().transpose(1, 2).float()
+                 - flash_attention.flash_attention_plain(*args).float()
+                 ).abs().max())
+    # q, k, v read once, o written once, both position vectors read
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 2 * pos.numel() * 4
+    flops = 4.0 * hd * H * w * s * (s + 1) / 2      # causal pairs
+    return ms, plain, lib, dev, nbytes, flops
+
+
+def kernel_rows(cfg, counts, shapes, errs, greedy=None):
     gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
     rows = []
+    src_fa = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    fa = [("prefill_batch",
+           max(shapes["none"]["prefill"], key=lambda x: x[0] * x[1] ** 2),
+           counts["none"][2])]
+    if greedy is not None:
+        fa.append(("greedy", greedy[1], greedy[0]))
+    for label, (w, s), launches in fa:
+        ms, plain, lib, dev, nbytes, flops = time_flash(cfg, gen, w, s)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        rows.append({
+            "name": f"flash_attention[{label}]", "route": "cuda",
+            "source": src_fa,
+            "replaces": "src/repro/kernels/flash_attention.py:111",
+            "launches": launches, "max_abs_err": errs["flash_attention"],
+            "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib, "library_max_abs_dev": dev,
+            "shape": {"batch": w, "positions": s, "heads": cfg.n_heads,
+                      "kv_heads": cfg.n_kv_heads,
+                      "head_dim": cfg.resolved_head_dim},
+            "bytes": nbytes, "operations": flops})
     for kv_quant, codec in (("none", "bf16"), ("int8", "int8")):
-        nd, npf = counts[kv_quant]
+        nd, npf, _ = counts[kv_quant]
         for (name, src, replaces, timer, key, launches) in (
                 ("paged_decode", "src/repro_torch/kernels/csrc/paged_decode.cu",
                  "src/repro/kernels/decode_attention.py:306", time_decode,
@@ -702,14 +1029,15 @@ def kernel_rows(cfg, counts, shapes, errs):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5",
+    ap.add_argument("--phases", default="1,2,3,4,5,6",
                     help="comma-separated phases to run (1 always runs)")
     args = ap.parse_args()
     phases = {int(x) for x in args.phases.split(",")}
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = phase_device()
-    errs = {"paged_decode": None, "paged_prefill": None}
+    errs = {"paged_decode": None, "paged_prefill": None,
+            "flash_attention": None}
     if 2 in phases:
         errs = phase_kernels()
     rows = []
@@ -726,7 +1054,8 @@ def main():
             f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
             f"{cfg.vocab_size}: {n_bytes / 1e9:.2f} GB of bf16 weights made "
             f"on the card from seed {SEED} in {time.time() - t0:.1f}s")
-        trace, context, counts, shapes, plans, peak = phase_main(cfg, params)
+        (trace, context, counts, shapes, plans, peak, reps,
+         calls) = phase_main(cfg, params)
         if 4 in phases:
             phase_identity(cfg, params, trace, context)
         if 5 in phases:
@@ -741,13 +1070,18 @@ def main():
                     f"{n_bytes / 1e9:.3f} GB, pool "
                     f"{(plan['pool_blocks'] + 1) * plan['per_block'] / 1e9:.3f}"
                     f" GB)")
-        rows = kernel_rows(cfg, counts, shapes, errs)
+        greedy = None
+        if 6 in phases:
+            greedy = phase_greedy(cfg, params, trace, context, reps, calls)
+        rows = kernel_rows(cfg, counts, shapes, errs, greedy)
         for r in rows:
+            lib = ("" if r["library_ms"] is None else
+                   f", library {r['library_ms']:.4f} ms")
             log(f"[k] {r['name']}: {r['ms']:.4f} ms at {r['shape']}, plain "
-                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-                f"{r['bound_by']}, {r['launches']} launches on the main path")
+                f"{r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
+                f"by {r['bound_by']}, {r['launches']} launches on its path")
     log(f"total {time.time() - t_start:.1f}s")
-    if not {1, 2, 3, 4, 5} <= phases:
+    if not {1, 2, 3, 4, 5, 6} <= phases:
         log("partial run (not every phase): no kernels line, no result line")
         return 0
     print(json.dumps({"kernels": rows}), flush=True)

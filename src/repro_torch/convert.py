@@ -1,8 +1,10 @@
-"""Hand-over of parameters and paged pools from the reference package.
+"""Hand-over of parameters, paged pools and ring caches between the
+reference package and this one.
 
 The reference side passes numpy arrays (bf16 leaves upcast to float32, which
 is exact); this module turns such a tree into the tensors this package's
-functions take. It imports numpy and torch only: the tests are the only
+functions take, and a tree of this package's tensors back into numpy
+(`to_numpy`). It imports numpy and torch only: the tests are the only
 callers that hold a tree made by the reference package.
 """
 from __future__ import annotations
@@ -39,16 +41,16 @@ def params_from_jax(numpy_tree, param_dtype="bfloat16", device="cuda"):
     return _map(numpy_tree, lambda a: _to_tensor(a, dt, device))
 
 
-_POOL_FLOAT = ("kb", "vb")
+_POOL_FLOAT = ("kb", "vb", "k", "v")
 
 
 def pool_from_jax(numpy_tree, device="cuda", fp_dtype=torch.bfloat16):
-    """A paged pool of numpy arrays (the reference package's
-    `init_paged_pool` layout) -> this package's pool on `device` (default
-    "cuda"; raises without a CUDA device). Integer leaves (codes,
-    positions) keep their dtype; fp payload leaves "kb"/"vb" are cast to
-    `fp_dtype` (bf16 payloads arrive upcast to float32); scale leaves stay
-    float32."""
+    """A paged pool or a ring cache tree of numpy arrays (the reference
+    package's `init_paged_pool` / `init_cache` layouts) -> this package's
+    tensors on `device` (default "cuda"; raises without a CUDA device).
+    Integer leaves (codes, positions) keep their dtype; fp payload leaves
+    "kb"/"vb" (pool) and "k"/"v" (ring) are cast to `fp_dtype` (bf16
+    payloads arrive upcast to float32); scale leaves stay float32."""
     device = require_device(device)
     def conv(tree):
         if isinstance(tree, dict):
@@ -65,3 +67,13 @@ def pool_from_jax(numpy_tree, device="cuda", fp_dtype=torch.bfloat16):
             return [conv(v) for v in tree]
         return _to_tensor(tree, None, device)
     return conv(numpy_tree)
+
+
+def to_numpy(tree):
+    """A tree of this package's tensors (params, a paged pool, ring caches)
+    -> the same nesting of numpy arrays for the reference package: bf16
+    leaves upcast to float32 (exact), every other dtype kept."""
+    def conv(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return _map(tree, conv)

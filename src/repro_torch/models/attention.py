@@ -1,20 +1,29 @@
-"""GQA attention over a paged KV pool: the serving subset of the reference
+"""GQA attention: the sequence path (whole-prompt prefill), the per-lane
+ring cache it builds, and a paged KV pool for serving, after the reference
 package's attention module.
 
-Ported: paged decode (one token per lane through block tables) and chunked
-prefill appended to the live pool. Backends:
+Backends:
   kernel — kernels.ops (hand-written CUDA kernels for a CUDA tensor, their
            plain PyTorch versions for a CPU tensor). The default.
-  naive  — the plain path on either device: scatter through the block table,
-           gather the virtual ring, dense masked softmax.
+  naive  — the plain path on either device: dense masked softmax over the
+           whole sequence, or over the ring / gathered virtual ring.
 
-Not ported yet (each raises NotImplementedError naming what lifts it): the
-sequence backends (whole-prompt prefill, training forward) and the per-lane
-ring cache.
+Paths:
+  sequence  — whole-prompt prefill: flash attention of the prompt over
+              itself; it can build a ring cache (`cache="build"`) or write
+              its K/V into a paged pool through the block tables.
+  decode    — one token per lane against a paged pool (block tables) or a
+              per-lane ring cache.
+  chunk     — a prompt chunk appended to a paged pool and attended over
+              history + chunk.
 
-Pools are updated IN PLACE: where the reference package returns new arrays,
-`_paged_write`, `_paged_write_chunk` and the kernels store into the cache's
-own tensors and hand the same dict back.
+Not ported yet (raises NotImplementedError naming what lifts it): a chunk
+appended to a per-lane ring cache (the ring/slot slice).
+
+Caches are updated IN PLACE: where the reference package returns new arrays,
+the ring write at decode, `write_prompt_kv`, `_paged_write`,
+`_paged_write_chunk` and the kernels store into the cache's own tensors and
+hand the same dict back.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models import layers
@@ -91,6 +101,77 @@ def _sdpa(q, k, v, mask):
     p = torch.softmax(s, dim=-1)
     o = layers.einsum_f32("bkgqs,bskh->bqkgh", p, v)
     return o.to(q.dtype)
+
+
+def _naive(q, k, v, qpos, kpos, blk: BlockSpec):
+    return _sdpa(q, k, v, _mask(qpos, kpos, blk))
+
+
+def _seq_attention(q, k, v, qpos, kpos, blk: BlockSpec,
+                   settings: AttnSettings):
+    """q [b,s,K,G,hd], k/v [b,s,K,hd], qpos/kpos [b,s] -> [b,s,K,G,hd]:
+    the flash-attention kernel (backend "kernel") or dense softmax."""
+    if settings.backend == "kernel":
+        from repro_torch.kernels import ops as kops
+        return kops.flash_attention(q, k, v, qpos, kpos, window=blk.window,
+                                    chunk=blk.chunk)
+    return _naive(q, k, v, qpos, kpos, blk)
+
+
+# ---------------------------------------------------------------------------
+# Ring-buffer KV cache
+# ---------------------------------------------------------------------------
+
+def cache_init(cfg: ModelConfig, blk: BlockSpec, batch: int, context: int,
+               dtype=torch.bfloat16, device="cuda"):
+    """An empty per-lane ring of cache_len(context) slots (pos -1)."""
+    L = blk.cache_len(context)
+    hd = cfg.resolved_head_dim
+    shape = (batch, L, cfg.n_kv_heads, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((batch, L), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _cache_from_prefill(k, v, positions, blk: BlockSpec, context: int):
+    """Build a ring cache holding the last cache_len positions of a prefill.
+
+    Always emits the FULL cache_len(context) ring: a prompt shorter than the
+    ring pads the empty slots with pos=-1 (masked). Without the padding a
+    short-prompt prefill would hand decode a ring of length prompt_len whose
+    slot = pos % prompt_len mapping evicts live context early (a global
+    layer's ring must only wrap at cache_len)."""
+    L = blk.cache_len(context)
+    k_t, v_t, p_t = k[:, -L:], v[:, -L:], positions[:, -L:]
+    pad = L - k_t.shape[1]
+    if pad > 0:
+        # prefill positions start at 0, so occupied slots are already at
+        # pos % L = 0..p-1; empty tail slots stay invalid
+        k_t = F.pad(k_t, (0, 0, 0, 0, 0, pad))
+        v_t = F.pad(v_t, (0, 0, 0, 0, 0, pad))
+        p_t = F.pad(p_t, (0, pad), value=-1)
+    # Ring layout: slot = pos % L. For contiguous positions that's a roll.
+    shift = int(p_t[0, 0]) % L    # uniform across batch (packed sequences)
+    return {
+        "k": torch.roll(k_t, shift, dims=1),
+        "v": torch.roll(v_t, shift, dims=1),
+        "pos": torch.roll(p_t, shift, dims=1),
+    }
+
+
+def _ring_decode(q, cache, blk: BlockSpec, pos1, k1, v1):
+    """One decode step against a per-lane ring cache: write k1/v1 [b,K,hd]
+    at slot pos1 % L IN PLACE, then attend over the ring. Inert rows (pos1
+    < 0) drop their write: only the live rows are selected for it."""
+    L = cache["pos"].shape[1]
+    rows = torch.nonzero(pos1 >= 0).flatten()
+    slot = torch.remainder(pos1[rows], L).long()
+    cache["k"][rows, slot] = k1[rows].to(cache["k"].dtype)
+    cache["v"][rows, slot] = v1[rows].to(cache["v"].dtype)
+    cache["pos"][rows, slot] = pos1[rows].to(cache["pos"].dtype)
+    return _decode_attend(q, cache, blk, pos1)
 
 
 def _decode_attend(q, cache, blk: BlockSpec, positions,
@@ -265,6 +346,54 @@ def _paged_write_chunk(cache, block_tables, k, v, positions):
     return cache
 
 
+def write_prompt_kv(cache, block_tables, k, v, positions):
+    """Whole-prompt prefill of one paged layer, IN PLACE: row i's K/V (k/v
+    [b, s, K, hd] at positions [b, s], -1 = padding) land at (table[pos //
+    block], pos % block), quantised for an int8/int4 pool, and every slot
+    of a MAPPED block past the row's last position is emptied (pos -1, the
+    payload and scale of a zero row), so a reused block never shows its
+    previous owner's positions. On mapped blocks the pool then equals what
+    the reference's write_paged_prefill leaves, which scatters each row's
+    whole context ring; positions whose logical block is unmapped write
+    nothing (the reference sends them to scratch block 0)."""
+    bs = cache["pos"].shape[1]
+    m_blocks = block_tables.shape[1]
+    kind = paged_quant_kind(cache)
+    tbl = block_tables.long()
+    pos = positions.long()
+    # tails first: no tail slot holds a position this write stores
+    last = torch.where(pos >= 0, pos, torch.full_like(pos, -1)).amax(dim=1)
+    logical = torch.arange(m_blocks * bs, device=pos.device).view(m_blocks,
+                                                                  bs)
+    tail = (tbl[:, :, None] >= 0) & (logical[None] > last[:, None, None])
+    t_blk = tbl[:, :, None].expand(-1, -1, bs)[tail]
+    t_off = logical.remainder(bs)[None].expand(tbl.shape[0], -1, -1)[tail]
+    zero = torch.zeros((t_blk.shape[0],) + tuple(k.shape[2:]),
+                       dtype=k.dtype, device=k.device)
+    zq, zs = quantize_kv(zero, kind)
+    cache["pos"].index_put_((t_blk, t_off), torch.full_like(t_blk, -1).to(
+        cache["pos"].dtype))
+    for pk, sk in (("kb", "ks"), ("vb", "vs")):
+        cache[pk].index_put_((t_blk, t_off), zq.to(cache[pk].dtype))
+        if kind != "none":
+            cache[sk].index_put_((t_blk, t_off), zs)
+    # the prompt's own rows
+    lb = torch.div(pos, bs, rounding_mode="floor")
+    phys = torch.gather(tbl, 1, torch.clamp(lb, 0, m_blocks - 1))
+    keep = (pos >= 0) & (lb < m_blocks) & (phys >= 0)
+    phys, off = phys[keep], torch.remainder(pos, bs)[keep]
+    kq, ks = quantize_kv(k[keep], kind)
+    vq, vs = quantize_kv(v[keep], kind)
+    cache["kb"].index_put_((phys, off), kq.to(cache["kb"].dtype))
+    cache["vb"].index_put_((phys, off), vq.to(cache["vb"].dtype))
+    cache["pos"].index_put_((phys, off), positions[keep].to(
+        cache["pos"].dtype))
+    if kind != "none":
+        cache["ks"].index_put_((phys, off), ks)
+        cache["vs"].index_put_((phys, off), vs)
+    return cache
+
+
 def _scales(cache):
     if paged_quant_kind(cache) == "none":
         return None, None
@@ -334,13 +463,22 @@ def _paged_decode(q, cache, blk: BlockSpec, pos1, k1, v1, block_tables,
 
 def attn_apply(params, cfg: ModelConfig, blk: BlockSpec, x, positions,
                cache=None, decode: bool = False, context: int = 0,
-               settings: AttnSettings = AttnSettings(), block_tables=None):
+               settings: AttnSettings = AttnSettings(), block_tables=None,
+               whole_prompt: bool = False):
     """x [b, s, d]; positions [b, s] (s=1 for decode). `block_tables`
     [b, max_blocks] routes the layer through its paged pool cache.
 
-    Returns (y [b, s, d], cache, aux dict). The cache returned is the one
-    passed in, updated in place. `aux` carries "attn_mass" [b, max_blocks]
-    on paged decode when settings.track_mass; empty otherwise.
+    `cache`: None (no cache), "build" (sequence path: return the ring this
+    prompt fills, `_cache_from_prefill`), or a layer cache — a per-lane ring
+    {"k", "v", "pos"} or a paged pool {"kb", "vb", "pos"[, "ks", "vs"]}.
+    On the sequence path a paged cache means "append this chunk to what
+    earlier chunks wrote", unless `whole_prompt`: then the sequence is a
+    whole prompt, attends over itself, and its K/V are written into the
+    pool through the block tables (`write_prompt_kv`).
+
+    Returns (y [b, s, d], cache, aux dict). A cache passed in is updated in
+    place and returned. `aux` carries "attn_mass" [b, max_blocks] on paged
+    decode when settings.track_mass; empty otherwise.
     """
     b, s, d = x.shape
     K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
@@ -355,28 +493,36 @@ def attn_apply(params, cfg: ModelConfig, blk: BlockSpec, x, positions,
         k = layers.apply_rope(k, positions, cfg.rope_theta)
 
     aux = {}
+    new_cache = cache
     if decode:
         assert cache is not None and s == 1
         pos1 = positions.reshape(b)              # accept [b] or [b, 1]
-        if not is_paged_cache(cache):
-            raise NotImplementedError(
-                "decode against a per-lane ring cache: needs the ring/slot "
-                "slice (decode_attention_fwd, windowed layers)")
-        assert block_tables is not None, \
-            "paged cache needs block_tables at decode"
-        o, new_cache, mass = _paged_decode(q, cache, blk, pos1, k[:, 0],
-                                           v[:, 0], block_tables, settings)
-        if mass is not None:
-            aux["attn_mass"] = mass
-    elif cache is not None:
+        if is_paged_cache(cache):
+            assert block_tables is not None, \
+                "paged cache needs block_tables at decode"
+            o, new_cache, mass = _paged_decode(q, cache, blk, pos1, k[:, 0],
+                                               v[:, 0], block_tables,
+                                               settings)
+            if mass is not None:
+                aux["attn_mass"] = mass
+        else:
+            o = _ring_decode(q, cache, blk, pos1, k[:, 0], v[:, 0])
+    elif isinstance(cache, dict) and not whole_prompt:
         # chunked prefill: a cache on the sequence path means "append this
         # chunk to what the earlier chunks already wrote"
         o, new_cache = _chunk_append(q, k, v, cache, blk, positions,
                                      block_tables, settings)
     else:
-        raise NotImplementedError(
-            "sequence attention without a cache (whole-prompt prefill, "
-            "training forward): needs the flash_attention_fwd slice")
+        o = _seq_attention(q, k, v, positions, positions, blk, settings)
+        if cache == "build":
+            new_cache = _cache_from_prefill(k, v, positions, blk, context)
+        elif cache is not None:
+            if not is_paged_cache(cache):
+                raise ValueError("whole-prompt prefill writes a paged pool "
+                                 "or builds a ring (cache='build')")
+            assert block_tables is not None, \
+                "paged cache needs block_tables for whole-prompt prefill"
+            write_prompt_kv(cache, block_tables, k, v, positions)
 
     o = o.reshape(b, s, cfg.n_heads * hd)
     y = layers.matmul(o, params["wo"])

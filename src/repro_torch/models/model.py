@@ -7,9 +7,10 @@ that axis, this package runs a Python loop over the layers and hands each
 layer a view `leaf[r]` of the stacked tensors; caches are updated in place
 through those views.
 
-Ported: attention mixers with a dense MLP, decode and chunk-append forward
-against a cache. Recurrent mixers, MoE and the cache-free sequence forward
-raise NotImplementedError naming what lifts them.
+Ported: attention mixers with a dense MLP; the sequence forward without a
+cache, the prefill that builds ring caches (`build_cache`) or writes a
+paged pool, and decode and chunk-append forwards against a cache. Recurrent
+mixers and MoE raise NotImplementedError naming what lifts them.
 """
 from __future__ import annotations
 
@@ -26,6 +27,10 @@ from repro_torch.models import attention, layers
 @dataclasses.dataclass(frozen=True)
 class ModelSettings:
     attn: attention.AttnSettings = attention.AttnSettings()
+    # prefill (not decode) fills a cache: with no cache given `apply`
+    # returns the ring caches the prompt fills; with a paged pool given it
+    # writes the prompt's K/V into the pool through the block tables
+    build_cache: bool = False
 
 
 def require_device(device) -> torch.device:
@@ -90,16 +95,26 @@ def block_init(gen, cfg: ModelConfig, blk: BlockSpec, device,
     return p
 
 
+def block_cache_init(cfg: ModelConfig, blk: BlockSpec, batch: int,
+                     context: int, dtype=torch.bfloat16, device="cuda"):
+    _check_block(blk)
+    return attention.cache_init(cfg, blk, batch, context, dtype=dtype,
+                                device=device)
+
+
 def block_apply(params, cfg: ModelConfig, blk: BlockSpec, x, positions,
                 cache=None, decode: bool = False, context: int = 0,
                 settings: ModelSettings = ModelSettings(),
                 block_tables=None):
-    """Returns (x', cache, aux). The cache is updated in place."""
+    """Returns (x', cache, aux). A cache passed in is updated in place; with
+    settings.build_cache and no cache, the ring the prompt fills."""
     _check_block(blk)
+    building = settings.build_cache and not decode
+    cache_arg = "build" if building and cache is None else cache
     delta, new_cache, aux = attention.attn_apply(
-        params["mixer"], cfg, blk, x, positions, cache=cache,
+        params["mixer"], cfg, blk, x, positions, cache=cache_arg,
         decode=decode, context=context, settings=settings.attn,
-        block_tables=block_tables)
+        block_tables=block_tables, whole_prompt=building)
     x = x + delta
     if blk.mlp == MLP_DENSE:
         x = x + mlp_apply(params["mlp"], cfg, x)
@@ -130,6 +145,22 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
     return params
 
 
+def init_cache(cfg: ModelConfig, batch: int, context: int,
+               dtype=torch.bfloat16, device="cuda"):
+    """Ring cache tree mirroring the params layout (stacked over repeats):
+    every ring empty (pos -1). Raises if `device` is CUDA and there is no
+    CUDA device."""
+    device = require_device(device)
+
+    def stacked(blk):
+        one = block_cache_init(cfg, blk, batch, context, dtype, device)
+        return {k: torch.stack([v] * cfg.repeats) for k, v in one.items()}
+
+    return {"units": [stacked(blk) for blk in cfg.unit],
+            "tail": [block_cache_init(cfg, blk, batch, context, dtype, device)
+                     for blk in cfg.tail]}
+
+
 def _tree_index(tree, r: int):
     """View r of every stacked leaf of a (nested dict) tree."""
     if isinstance(tree, dict):
@@ -147,15 +178,19 @@ def apply(params, cfg: ModelConfig, tokens, *, positions=None,
           settings: ModelSettings = ModelSettings(), context: int = 0,
           logits_last_only: bool = False, block_tables=None,
           head_rows=None):
-    """Forward pass against a cache.
+    """Forward pass.
 
     tokens [b, s] (s=1 for decode); positions [b] for decode, [b, s]
-    absolute positions for a mid-prompt chunk (-1 marks padding);
-    block_tables [b, max_blocks] maps each sequence's logical KV blocks to
-    physical blocks of a paged pool cache (-1 = unassigned).
-    Returns (logits f32, cache, aux). The cache's tensors are updated IN
-    PLACE and the same tree is returned (the reference package returns a new
-    tree). Without a cache this needs the whole-prompt prefill slice.
+    absolute positions for a mid-prompt chunk (-1 marks padding; else the
+    implied arange); block_tables [b, max_blocks] maps each sequence's
+    logical KV blocks to physical blocks of a paged pool cache (-1 =
+    unassigned).
+    Returns (logits f32, cache, aux). A cache passed in has its tensors
+    updated IN PLACE and the same tree is returned (the reference package
+    returns a new tree). With settings.build_cache (prefill) and no cache,
+    the returned cache is the ring tree the prompt fills; with a paged pool
+    it is that pool, the prompt's K/V written layer by layer. Without
+    either, the cache returned is None.
 
     `head_rows` [b] (sequence path only) sends just position head_rows[i]
     of row i through the final norm and the LM head: logits [b, 1, V]. Both
@@ -177,21 +212,30 @@ def apply(params, cfg: ModelConfig, tokens, *, positions=None,
 
     aux_acc: Dict[str, Any] = {}
     have_cache = cache is not None
+    building = settings.build_cache and not decode and not have_cache
+    if building:
+        cache = init_cache(cfg, b, ctx, dtype=x.dtype, device=x.device)
 
     def run_block(p, blk, x, c):
-        x, _, aux = block_apply(p, cfg, blk, x, pos, cache=c, decode=decode,
-                                context=ctx, settings=settings,
-                                block_tables=block_tables)
+        x, nc, aux = block_apply(p, cfg, blk, x, pos,
+                                 cache=None if building else c,
+                                 decode=decode, context=ctx,
+                                 settings=settings,
+                                 block_tables=block_tables)
+        if building:                 # the ring this layer's prompt filled
+            for k, v in nc.items():
+                c[k].copy_(v)
         for k, v in aux.items():
             aux_acc[k] = aux_acc[k] + v if k in aux_acc else v
         return x
 
+    with_cache = have_cache or building
     for r in range(cfg.repeats):
         for i, blk in enumerate(cfg.unit):
-            c = _tree_index(cache["units"][i], r) if have_cache else None
+            c = _tree_index(cache["units"][i], r) if with_cache else None
             x = run_block(_tree_index(params["units"][i], r), blk, x, c)
     for i, blk in enumerate(cfg.tail):
-        c = cache["tail"][i] if have_cache else None
+        c = cache["tail"][i] if with_cache else None
         x = run_block(params["tail"][i], blk, x, c)
 
     if head_rows is not None and not decode:

@@ -1,6 +1,9 @@
-"""Serving steps over the paged KV pool: one batched decode tick through the
-block tables, its lane-compacted form, chunked prefill against the live
-pool, and the pool operations the serving engine uses.
+"""Serving steps: prefill (builds the ring KV caches, returns last-token
+logits), decode (one token per sequence against the cache), greedy
+generation on top of them; and over the paged KV pool: whole-prompt prefill
+into the pool, one batched decode tick through the block tables, its
+lane-compacted form, chunked prefill against the live pool, and the pool
+operations the serving engine uses.
 
 Paged-pool notes (see serving.engine for the admission/eviction policy):
 
@@ -18,18 +21,76 @@ Paged-pool notes (see serving.engine for the admission/eviction policy):
 
 There is no jit here: the steps run eagerly, and every pool operation
 updates the pool's tensors IN PLACE and returns the same tree (the reference
-package returns new arrays from donated buffers). Not ported yet: the
-whole-prompt prefill steps and greedy_generate (flash_attention_fwd slice),
-the ring slot pool (ring/slot slice).
+package returns new arrays from donated buffers). Whole-prompt prefill
+writes each layer's K/V into the pool as that layer runs, so the rings of
+all layers never exist at once (the reference builds them all, then
+scatters them: write_paged_prefill, kept here for a ring tree in hand). Not
+ported yet: the ring slot pool (ring/slot slice).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as A
 from repro_torch.models import model as M
+
+
+def make_prefill_step(cfg: ModelConfig,
+                      settings: Optional[M.ModelSettings] = None):
+    """Prefill tokens [b, p] from position 0: (last-token logits [b, V],
+    the ring cache tree the prompt fills)."""
+    settings = settings or M.ModelSettings()
+    psettings = dataclasses.replace(settings, build_cache=True)
+
+    def prefill_step(params, tokens, context: int):
+        logits, cache, _ = M.apply(params, cfg, tokens, settings=psettings,
+                                   context=context, logits_last_only=True)
+        return logits[:, -1], cache
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig,
+                     settings: Optional[M.ModelSettings] = None):
+    """One token per sequence (tokens [b, 1] at positions [b]) against a
+    ring cache tree, updated in place: (logits [b, V], cache)."""
+    settings = settings or M.ModelSettings()
+
+    def decode_step(params, tokens, positions, cache, context: int):
+        logits, cache, _ = M.apply(params, cfg, tokens, positions=positions,
+                                   cache=cache, decode=True,
+                                   settings=settings, context=context)
+        return logits[:, -1], cache
+
+    return decode_step
+
+
+def greedy_generate(params, cfg: ModelConfig, prompt_tokens, n_steps: int,
+                    context: int, settings: Optional[M.ModelSettings] = None):
+    """Greedy decoding, prompt_tokens [b, p] -> [b, n_steps] int32: prefill
+    into ring caches, then ring decode. The engine's per-request reference
+    path. The step after the last emitted token is not run (its token would
+    be dropped)."""
+    b, p = prompt_tokens.shape
+    prefill = make_prefill_step(cfg, settings)
+    decode = make_decode_step(cfg, settings)
+    last_logits, cache = prefill(params, prompt_tokens, context=context)
+    out = []
+    tok = torch.argmax(last_logits, dim=-1).to(torch.int32)
+    for t in range(n_steps):
+        out.append(tok)
+        if t + 1 == n_steps:
+            break
+        pos = torch.full((b,), p + t, dtype=torch.int32,
+                         device=prompt_tokens.device)
+        logits, cache = decode(params, tok[:, None], pos, cache,
+                               context=context)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    return torch.stack(out, dim=1)
 
 
 def is_paged_block(blk, context: int) -> bool:
@@ -103,6 +164,51 @@ def init_paged_pool(cfg: ModelConfig, n_lanes: int, n_blocks: int,
             "tail": [{k: materialize(s) for k, s in one_cache(blk).items()}
                      for blk in cfg.tail]}
     return pool
+
+
+def write_paged_prefill(cfg: ModelConfig, pool, one, lanes, tables,
+                        block: int):
+    """Write a width-W prefill ring tree `one` (make_prefill_step's, every
+    ring in identity layout: prefill positions start at 0 and the ring
+    spans the full context, so slot i holds position i) into the paged pool
+    through `tables` [W, mB], IN PLACE (attention.write_prompt_kv per
+    layer). Per-lane leaves (lanes [W]) are not ported yet. `block` must be
+    the pool's block size."""
+    if block != pool_block_size(pool, block):
+        raise ValueError(f"block {block} != the pool's "
+                         f"{pool_block_size(pool)}")
+    for P, o in zip(pool["units"], one["units"]):
+        if not _is_paged_leaf(P):
+            raise _lane_leaves_unsupported()
+        for r in range(cfg.repeats):
+            A.write_prompt_kv({n: t[r] for n, t in P.items()}, tables,
+                              o["k"][r], o["v"][r], o["pos"][r])
+    for P, o in zip(pool["tail"], one["tail"]):
+        if not _is_paged_leaf(P):
+            raise _lane_leaves_unsupported()
+        A.write_prompt_kv(P, tables, o["k"], o["v"], o["pos"])
+    return pool
+
+
+def make_paged_prefill_step(cfg: ModelConfig,
+                            settings: Optional[M.ModelSettings] = None):
+    """Batched whole-prompt prefill into the paged pool: tokens [W, p] from
+    position 0, lanes [W], tables [W, mB]. Each layer attends the prompts
+    over themselves (the flash-attention kernel on the card) and writes
+    their K/V into the pool through the tables as it runs. Returns
+    (last-token logits [W, V], the pool, updated in place)."""
+    settings = settings or M.ModelSettings()
+    psettings = dataclasses.replace(settings, build_cache=True)
+
+    def prefill_paged(params, tokens, lanes, tables, pool, context: int):
+        sub = gather_pool_lanes(pool, lanes)
+        logits, new_sub, _ = M.apply(params, cfg, tokens, cache=sub,
+                                     settings=psettings, context=context,
+                                     logits_last_only=True,
+                                     block_tables=tables)
+        return logits[:, -1], scatter_pool_lanes(pool, new_sub, lanes)
+
+    return prefill_paged
 
 
 def make_paged_decode_step(cfg: ModelConfig,

@@ -335,11 +335,15 @@ class BlockAllocator:
         """Carve `n` blocks for a shared prefix (refcount 0 until
         acquired). Returns None — without mutating anything — if the pool
         can't physically supply them even after reclaiming cached
-        prefixes."""
+        prefixes, or if acquiring them would commit more than the pool
+        (what is reserved already counts: the blocks are free, not
+        uncommitted)."""
         if n < 1:
             raise ValueError(f"create_prefix needs n >= 1, got {n}")
         if key in self._prefix:
             raise RuntimeError(f"prefix {key!r} already cached")
+        if not self.can_admit(n):
+            return None
         while len(self._free) < n:
             if not self._reclaim():
                 return None
@@ -349,7 +353,13 @@ class BlockAllocator:
         return list(blocks)
 
     def acquire_prefix(self, key) -> List[int]:
+        """Take one reference on a cached prefix. The first reference
+        commits its blocks: if that would commit more than the pool, the
+        call raises and changes nothing."""
         p = self._prefix[key]
+        if p["refs"] == 0 and not self.can_admit(len(p["blocks"])):
+            raise RuntimeError(f"acquire_prefix({key!r}) over-commits the "
+                               "pool")
         p["refs"] += 1
         self.peak_committed = max(self.peak_committed, self.committed)
         return list(p["blocks"])

@@ -13,8 +13,10 @@ and an EVICTED request re-prefills `prompt + already-emitted tokens` from
 scratch into freshly allocated blocks. No executor state survives an
 eviction; everything is the block tables.
 
-Whole-prompt prefill (`prefill_batch`) is not ported yet and raises: run the
-engine with `chunk_prefill` > 0 and prompts longer than the chunk.
+Whole-prompt prefill (`prefill_batch`) runs a same-length admission group
+at the smallest lane bucket covering it; each layer attends the prompts
+over themselves (the flash-attention kernel on the card) and writes their
+K/V into the pool through the block tables as it runs.
 """
 from __future__ import annotations
 
@@ -134,18 +136,20 @@ class PagedTorchExecutor:
         self._decode_step = SS.make_paged_decode_step(cfg, settings)
         self._compact_step = SS.make_compact_decode_step(cfg, settings)
         self._chunk_step = SS.make_chunk_prefill_step(cfg, settings)
+        self._prefill_step = SS.make_paged_prefill_step(cfg, settings)
         self.prefills = 0
         self.decodes = 0
         self.chunk_calls = 0
-        # distinct (lane-bucket, table-bucket) shapes each step was launched
-        # at — what a jit would have compiled
-        self._shapes: Dict[str, set] = {"decode": set(),
+        # distinct shapes each step was launched at — what a jit would have
+        # compiled: (lane bucket, table bucket) for decode and chunk steps,
+        # (lane bucket, prompt length) for whole-prompt prefill
+        self._shapes: Dict[str, set] = {"prefill": set(), "decode": set(),
                                         "decode_compact": set(),
                                         "chunk": set()}
         # batch rows each bucketed step held a request in, and rows it
         # computed (the difference is the buckets' padding rows)
-        self.rows_real = {"decode_compact": 0, "chunk": 0}
-        self.rows_computed = {"decode_compact": 0, "chunk": 0}
+        self.rows_real = {"prefill": 0, "decode_compact": 0, "chunk": 0}
+        self.rows_computed = {"prefill": 0, "decode_compact": 0, "chunk": 0}
         # lane -> per-logical-block attention mass from the LAST decode
         # tick (only populated when kv_retain or track_mass enables the
         # accounting)
@@ -172,8 +176,33 @@ class PagedTorchExecutor:
     def prefill_batch(self, lanes: Sequence[int],
                       prompts: Sequence[Sequence[int]],
                       tables: Sequence[Sequence[int]]) -> List[int]:
-        raise NotImplementedError(
-            "whole-prompt prefill: needs the flash_attention_fwd slice")
+        """One whole-prompt prefill of a same-length admission group: lane
+        `lanes[j]` prefills `prompts[j]` from position 0 into the blocks of
+        `tables[j]`. The group is padded to the smallest lane bucket that
+        covers it (padding rows: the pad token, lane id n_lanes, an empty
+        table, so they write nothing). Returns each lane's first token."""
+        n = len(lanes)
+        if not n or len(prompts) != n or len(tables) != n:
+            raise ValueError("prefill_batch needs one prompt and one table "
+                             "per lane")
+        p = len(prompts[0])
+        if p < 1 or any(len(pr) != p for pr in prompts):
+            raise ValueError("prefill_batch takes prompts of one length")
+        w = _cover(n, self.lane_buckets)
+        toks = np.full((w, p), _pad_token(self.cfg), np.int32)
+        toks[:n] = np.asarray([list(pr) for pr in prompts], np.int32)
+        lane_arr = np.full((w,), self.n_lanes, np.int32)
+        lane_arr[:n] = lanes
+        tbl = self._table_array(list(tables) + [[]] * (w - n), w)
+        self._shapes["prefill"].add((w, p))
+        self.rows_real["prefill"] += n
+        self.rows_computed["prefill"] += w
+        logits, self.pool = self._prefill_step(
+            self.params, self._dev(toks), self._dev(lane_arr),
+            self._dev(tbl), self.pool, context=self.context)
+        self.prefills += n                 # per-request, like the engine
+        out = self._argmax(logits)
+        return [int(out[j]) for j in range(n)]
 
     def fresh_blocks(self, ids: Sequence[int]) -> None:
         """Invalidate re-linked physical blocks (pos = -1) before decode
@@ -316,12 +345,13 @@ class PagedTorchExecutor:
 
     def compile_counts(self) -> dict:
         """Nothing is compiled per shape here; each entry is the number of
-        distinct (lane-bucket, table-bucket) shapes that step was launched
-        at, which is what the reference executor's jit would have compiled
-        — so the engine's report keeps its meaning. `prefill` (whole-prompt
-        prefill) is always 0: it is not ported; so is `reset`, which takes
-        the block ids as they come, with no padded width."""
-        return {"prefill": 0,
+        distinct shapes that step was launched at ((lane bucket, prompt
+        length) for whole-prompt prefill, (lane bucket, table bucket) for
+        the others), which is what the reference executor's jit would have
+        compiled — so the engine's report keeps its meaning. `reset` is
+        always 0: it takes the block ids as they come, with no padded
+        width."""
+        return {"prefill": len(self._shapes["prefill"]),
                 "decode": len(self._shapes["decode"]),
                 "decode_compact": len(self._shapes["decode_compact"]),
                 "chunk": len(self._shapes["chunk"]),

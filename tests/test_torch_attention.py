@@ -163,15 +163,25 @@ def test_attn_apply_track_mass_and_unported_paths_raise():
         np.testing.assert_allclose(auxt["attn_mass"].numpy(),
                                    np.asarray(auxj["attn_mass"]), atol=5e-3,
                                    rtol=0)
-    xt = torch.from_numpy(_attn_inputs(cj, 1, 1, 4)).to(torch.bfloat16)
+    # the sequence path without a cache and ring decode are ported (they
+    # raised before): equal to the reference's; a chunk appended to a ring
+    # still raises, naming the slice that lifts it
+    x = _attn_inputs(cj, 1, 1, 4)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
     pos = torch.arange(4, dtype=torch.int32)[None]
-    with pytest.raises(NotImplementedError, match="flash_attention_fwd"):
-        TA.attn_apply(pmt, ct, ct.unit[0], xt, pos)
-    ring = {"k": torch.zeros(1, 8, 2, 16), "v": torch.zeros(1, 8, 2, 16),
+    yt, none, _ = TA.attn_apply(pmt, ct, ct.unit[0], xt, pos)
+    yj, _, _ = JA.attn_apply(pmj, cj, cj.unit[0], jnp.asarray(x, jnp.bfloat16),
+                             jnp.asarray(pos.numpy()),
+                             settings=JA.AttnSettings(backend="pallas"))
+    assert none is None
+    np.testing.assert_allclose(t_np(yt), to_np(yj), atol=1e-2, rtol=0)
+    K, hd = ct.n_kv_heads, ct.resolved_head_dim
+    ring = {"k": torch.zeros(1, 8, K, hd, dtype=torch.bfloat16),
+            "v": torch.zeros(1, 8, K, hd, dtype=torch.bfloat16),
             "pos": torch.full((1, 8), -1, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="ring"):
-        TA.attn_apply(pmt, ct, ct.unit[0], xt[:, :1], pos[:, :1], cache=ring,
-                      decode=True)
+    _, same, _ = TA.attn_apply(pmt, ct, ct.unit[0], xt[:, :1], pos[:, :1],
+                               cache=ring, decode=True)
+    assert same is ring and ring["pos"][0].tolist() == [0] + [-1] * 7
     with pytest.raises(NotImplementedError, match="ring"):
         TA.attn_apply(pmt, ct, ct.unit[0], xt, pos, cache=ring)
     with pytest.raises(ValueError):

@@ -112,12 +112,24 @@ def test_full_width_decode_and_plain_backend_same_tokens():
 
 
 def test_prefill_batch_raises_and_device_rule():
+    """prefill_batch works (it raised before whole-prompt prefill was
+    ported): the prompt's positions land in its block, the rest of the
+    block is emptied, one launch shape is counted; malformed groups and a
+    chunk that is no multiple of the block raise; the default device is
+    the card."""
     import torch
     _, _, ct, pt = model_pair()
     ex = PagedTorchExecutor(pt, ct, n_lanes=2, n_blocks=6, kv_block=4,
                             context=16, chunk=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="flash_attention_fwd"):
-        ex.prefill_batch([0], [[2, 3, 4]], [[1]])
+    ex.pool["units"][0]["pos"].fill_(9)              # a previous owner's
+    first = ex.prefill_batch([1], [[2, 3, 4]], [[5]])
+    assert len(first) == 1 and 0 <= first[0] < ct.padded_vocab_size
+    pos = ex.pool["units"][0]["pos"]
+    assert pos[0, 5].tolist() == [0, 1, 2, -1]
+    assert int(pos[0, 1].min()) == 9                 # other blocks untouched
+    assert ex.compile_counts()["prefill"] == 1 and ex.prefills == 1
+    with pytest.raises(ValueError):
+        ex.prefill_batch([0, 1], [[2, 3], [2, 3, 4]], [[1], [2]])
     with pytest.raises(ValueError):
         PagedTorchExecutor(pt, ct, n_lanes=2, n_blocks=6, kv_block=4,
                            context=16, chunk=6, device="cpu")
@@ -145,9 +157,34 @@ def test_fresh_blocks_takes_ids_as_given_and_rows_are_accounted():
                       tables=[[1], [2], [3]], final=[True] * 3)
     ex.decode([2, 2, 2, 0], [4, 4, 4, 0], [[1, 4], [2, 5], [3, 6], []],
               lanes=[0, 1, 2])
-    assert ex.rows_real == {"decode_compact": 3, "chunk": 3}
-    assert ex.rows_computed == {"decode_compact": 4, "chunk": 4}
+    assert ex.rows_real == {"prefill": 0, "decode_compact": 3, "chunk": 3}
+    assert ex.rows_computed == {"prefill": 0, "decode_compact": 4,
+                                "chunk": 4}
     assert ex.compile_counts()["reset"] == 0
+
+
+@pytest.mark.parametrize("mode", ["worst", "expected"])
+def test_allocator_prefix_cannot_over_commit(mode):
+    """ROADMAP C F3, repaired in the port's copy: reserve(0, 1), reserve(3,
+    4), create_prefix("p3", 4), acquire_prefix("p3") committed 9 of 8
+    blocks. A prefix that reservations leave no room for is refused (None),
+    and acquiring one carved earlier raises and changes nothing."""
+    a = TS.BlockAllocator(8, 2, reservation=mode)
+    a.reserve(0, 1)
+    a.reserve(3, 4)
+    assert a.create_prefix("p3", 4) is None
+    assert a.free_blocks == 8 and a.prefix_refs("p3") < 0
+    assert a.create_prefix("p2", 3) is not None      # 5 + 3 fits
+    b = TS.BlockAllocator(8, 2, reservation=mode)
+    assert b.create_prefix("p3", 4) is not None
+    b.reserve(0, 1)
+    b.reserve(3, 4)
+    with pytest.raises(RuntimeError, match="over-commits"):
+        b.acquire_prefix("p3")
+    assert b.prefix_refs("p3") == 0 and b.committed == 5
+    assert b.audit() == []
+    b.free(3)
+    assert b.acquire_prefix("p3") and b.committed == 5 <= b.n_blocks
 
 
 # ---------------------------------------------------------------------------

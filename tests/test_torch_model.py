@@ -149,11 +149,17 @@ def test_init_params_layout_and_device_rule():
 
 
 def test_unported_paths_raise_by_name():
+    """What is not ported raises by name; the cache-free forward (which
+    raised before whole-prompt prefill was ported) runs and equals the
+    reference's."""
     from repro_torch.configs import get_config
-    _, _, ct, pt = model_pair()
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="flash_attention_fwd"):
-        apply(pt, ct, toks)
+    cj, pj, ct, pt = model_pair()
+    toks = np.asarray([[5, 9, 2, 7]], np.int32)
+    lt, cache, _ = apply(pt, ct, torch.from_numpy(toks))
+    lj, _, _ = japply(pj, cj, jnp.asarray(toks),
+                      settings=JMS(attn=JAS(backend="naive")))
+    assert cache is None
+    _check_logits(lt.numpy(), np.asarray(lj))
     gen = torch.Generator(device="cpu").manual_seed(0)
     with pytest.raises(NotImplementedError, match="recurrent"):
         init_params(gen, get_config("xlstm-1.3b").reduced(), device="cpu")
