@@ -6,12 +6,15 @@
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. device: the card's name and power limit, its properties beside the
-     constants the capacity model uses; build the three CUDA kernels from
+     constants the capacity model uses; build the four CUDA kernels from
      src/repro_torch/kernels/csrc/, one nvcc each, all started together.
   2. each kernel's wrapper against its plain PyTorch version on the card, at
      serving shapes and at odd ones: bf16 / int8 / int4 / f32 pools for the
      paged kernels; f32 / bf16, causal / window / chunk, G = 1, 2, 4,
-     lengths no tile divides and padded rows for flash attention (lse too).
+     lengths no tile divides and padded rows for flash attention (lse too);
+     for the mLSTM scan the reference sweep (dk != dv too), with and
+     without a carried state, fresh rows, padded steps, padding-only rows,
+     f32 / bf16 and xlstm-1.3b's serving shape [32, 256, 1024].
   3. the main path at full width: mistral-nemo-12b, all 40 layers, random
      bf16 weights from a seed; the capacity model sizes the KV block pool;
      the engine serves a seeded trace of short and long prompts through
@@ -28,6 +31,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      then ring decode), held against phase 3's bf16-pool streams, the first
      divergence judged; then the int8 pool's token agreement with
      serving.quality.token_agreement (printed, not asserted).
+  7. the recurrent path at full width and depth: xlstm-1.3b, all 48 layers
+     (42 mLSTM + 6 sLSTM), random weights from a seed; mLSTM and sLSTM
+     state in per-lane pool leaves (nothing paged); the engine serves 12
+     requests on 8 lanes (whole-prompt and chunked prefill, compacted
+     decode, strict audit); mLSTM scan launches = 42 x prefill calls, none
+     in decode ticks; predicted memory (lane-state term apart) beside
+     torch.cuda.max_memory_allocated(); a subset replayed through
+     greedy_generate, divergences judged by the rms logit difference; the
+     trace at 8 layers with the kernel and with the plain scan, judged as
+     in phase 4; per-block host times and the lane gather / scatter.
   then: each kernel timed at the largest shape its path launched it at,
   beside its plain version, its bound and (flash attention) the one
   PyTorch call that computes the same function; one JSON line `kernels`.
@@ -60,9 +73,10 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import DECODE, ShapeConfig, depth_variant  # noqa: E402
 from repro_torch.core import classifier as CL, predictor as PR  # noqa: E402
 from repro_torch.kernels import (build, flash_attention,  # noqa: E402
-                                 paged_decode, paged_prefill)
+                                 mlstm_scan, paged_decode, paged_prefill)
 from repro_torch.models import ModelSettings, init_params  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models import recurrent as R  # noqa: E402
 from repro_torch.runtime import serve_step as SS  # noqa: E402
 from repro_torch.serving import (BlockAllocator, Engine, leak_check,  # noqa: E402
                                  synthetic_trace, trace_context)
@@ -90,6 +104,11 @@ TOL_MASS = 1e-4     # per-block softmax share in [0, 1], f32 on both sides
 TOL_LSE = 1e-4      # flash lse: f32 on both sides from the same stored
                     # inputs, values of order 10 (rows that see nothing:
                     # -1e30 on both)
+RTOL_ML = 1e-4      # mLSTM scan, f32 results: sums of up to 1024 products
+                    # in two orders (about 1e-6 of the largest term each)
+                    # and expf within 2 ULP, so 1e-4 of the value plus 1e-4
+                    # of the folded head's largest value (results that
+                    # cancel to near zero carry the terms' absolute error)
 # Phase 4: a token divergence between kernel and plain runs is accepted only
 # where the top-2 logit gap is below this fraction of that row's logit
 # standard deviation on both sides. The two runs differ by bf16 roundings of
@@ -112,6 +131,9 @@ REL_BOUND = 0.1
 
 PEAK_BYTES_PER_S = HW.H100.hbm_bw            # 3.35e12
 PEAK_BF16_FLOPS = HW.H100.peak_flops_bf16    # 989e12
+# the mLSTM scan's arithmetic is f32 (as the reference package's): the
+# card's f32 rate outside the tensor cores (NVIDIA's H100 SXM data sheet)
+PEAK_F32_FLOPS = 67e12
 
 
 def log(msg):
@@ -155,7 +177,7 @@ def phase_device():
         for line in build.build_log(name).splitlines():
             if "registers" in line or "error" in line.lower():
                 log(f"[1]   {name}: {line.strip()}")
-    for mod in (paged_decode, paged_prefill, flash_attention):
+    for mod in (paged_decode, paged_prefill, flash_attention, mlstm_scan):
         build.library(mod.SOURCE)
     return smi
 
@@ -347,10 +369,68 @@ def flash_case(gen, name, *, b, s, K, G, hd, qdt=torch.bfloat16,
     return err
 
 
+def check_rel(name, got, want):
+    """|got - want| <= RTOL_ML * (|want| + the largest |want| of the same
+    folded head) elementwise, for the mLSTM scan's f32 results; returns the
+    largest absolute error."""
+    if not torch.isfinite(got.float()).all():
+        fail(f"{name}: kernel result not finite")
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    head = w.abs().reshape(w.shape[0], -1).amax(dim=1)
+    head = head.reshape((-1,) + (1,) * (w.dim() - 1))
+    over = diff - RTOL_ML * (w.abs() + head)
+    if not float(over.max()) <= 0.0:
+        fail(f"{name}: max abs err {float(diff.max()):.3e} exceeds "
+             f"{RTOL_ML:.0e} x (|value| + head max) by "
+             f"{float(over.max()):.3e}")
+    return float(diff.max())
+
+
+def mlstm_case(gen, name, *, bh, s, dk, dv, chunk, dt=torch.float32,
+               initial=False, fresh=(), pad_tail=0, pad_rows=()):
+    """Kernel 4 against its plain version: out (bf16: the bf16 tolerance;
+    f32: check_rel), C, n and m (check_rel). `fresh` rows of the initial
+    state are a fresh lane's (C, n = 0, m = -1e30); the last `pad_tail`
+    steps of every row and all steps of `pad_rows` are padding (i = -1e30,
+    f = 1e4), as chunked prefill pads them."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+    q, k = (rnd(bh, s, dk) * 0.5).to(dt), (rnd(bh, s, dk) * 0.5).to(dt)
+    v = rnd(bh, s, dv).to(dt)
+    ig, fg = rnd(bh, s), rnd(bh, s) + 2.0
+    if pad_tail:
+        ig[:, s - pad_tail:] = mlstm_scan.NEG_INF
+        fg[:, s - pad_tail:] = 1e4
+    for r in pad_rows:
+        ig[r], fg[r] = mlstm_scan.NEG_INF, 1e4
+    init = None
+    if initial:
+        C0, n0, m0 = rnd(bh, dk, dv), rnd(bh, dk).abs(), rnd(bh, 1)
+        for r in fresh:
+            C0[r], n0[r], m0[r] = 0.0, 0.0, mlstm_scan.NEG_INF
+        init = (C0, n0, m0)
+    got = mlstm_scan.mlstm_scan_fwd(q, k, v, ig, fg, chunk=chunk,
+                                    initial=init)
+    torch.cuda.synchronize()
+    want = mlstm_scan.mlstm_scan_plain(q, k, v, ig, fg, chunk=chunk,
+                                       initial=init)
+    if dt == torch.bfloat16:
+        err = check_close(name, got[0], want[0], TOL_BF16)
+    else:
+        err = check_rel(name, got[0], want[0])
+    for nm, a, b in zip(("C", "n", "m"), got[1], want[1]):
+        check_rel(f"{name} {nm}", a, b)
+    for r in pad_rows:
+        if r in fresh and float(got[0][r].float().abs().max()) != 0.0:
+            fail(f"{name}: padding-only fresh row {r} output not zero")
+    return err
+
+
 def phase_kernels():
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
     errs = {"paged_decode": 0.0, "paged_prefill": 0.0,
-            "flash_attention": 0.0}
+            "flash_attention": 0.0, "mlstm_scan": 0.0}
     n = 0
     S = dict(K=8, G=4, hd=128, bs=16)      # mistral-nemo-12b serving shapes
 
@@ -461,12 +541,52 @@ def phase_kernels():
     # the serving shapes: a whole-prompt prefill group, a greedy prefill
     f("serve w8 s256", b=8, s=256, **MN)
     f("greedy w1 s2048", b=1, s=2048, **MN)
+
+    def ml(name, **kw):
+        nonlocal n
+        errs["mlstm_scan"] = max(errs["mlstm_scan"],
+                                 mlstm_case(gen, "mlstm " + name, **kw))
+        n += 1
+
+    # the reference kernel tests' sweep (dk != dv in the second), with and
+    # without a carried state, f32 and bf16
+    for dt in (torch.float32, torch.bfloat16):
+        t = "f32" if dt == torch.float32 else "bf16"
+        for init in (False, True):
+            i = " initial" if init else ""
+            ml(f"s128 bh4 dk16 dv16 c32 {t}{i}", bh=4, s=128, dk=16, dv=16,
+               chunk=32, dt=dt, initial=init)
+            ml(f"s64 bh2 dk8 dv24 c64 {t}{i}", bh=2, s=64, dk=8, dv=24,
+               chunk=64, dt=dt, initial=init)
+            ml(f"s96 bh8 dk32 dv32 c32 {t}{i}", bh=8, s=96, dk=32, dv=32,
+               chunk=32, dt=dt, initial=init)
+    # a fresh row (m0 = -1e30) beside carried ones, trailing padded steps
+    # (i = -1e30, f = 1e4), rows of padding only (one fresh, one carried)
+    ml("fresh rows", bh=4, s=64, dk=20, dv=40, chunk=32, initial=True,
+       fresh=(1, 3))
+    ml("padded tail", bh=4, s=128, dk=64, dv=64, chunk=64, initial=True,
+       fresh=(0,), pad_tail=37)
+    ml("padding-only rows", bh=4, s=32, dk=16, dv=16, chunk=32, initial=True,
+       fresh=(2,), pad_rows=(1, 2), dt=torch.bfloat16)
+    # xlstm-1.3b's heads (dk = dv = 1024): short whole prompts (one chunk of
+    # 9 or 64), a 256-token chunk call with padding, the serving shape
+    ml("full width s9 c9 bf16", bh=4, s=9, dk=1024, dv=1024, chunk=128,
+       dt=torch.bfloat16)
+    ml("full width s64 bf16", bh=8, s=64, dk=1024, dv=1024, chunk=128,
+       dt=torch.bfloat16)
+    ml("full width f32 initial", bh=4, s=256, dk=1024, dv=1024, chunk=128,
+       initial=True, fresh=(1,), pad_tail=100)
+    ml("serve [32, 256, 1024] c128 bf16 initial", bh=32, s=256, dk=1024,
+       dv=1024, chunk=128, dt=torch.bfloat16, initial=True, fresh=(5, 17),
+       pad_tail=55)
     log(f"[2] {n} kernel-vs-plain cases agree on the card: max abs err "
         f"decode {errs['paged_decode']:.3e}, prefill "
-        f"{errs['paged_prefill']:.3e}, flash {errs['flash_attention']:.3e} "
+        f"{errs['paged_prefill']:.3e}, flash {errs['flash_attention']:.3e}, "
+        f"mlstm out {errs['mlstm_scan']:.3e} "
         f"(tolerances: f32 {TOL_F32:.0e}, bf16 "
         f"{TOL_BF16:.0e} + {RTOL_BF16:.1e} * |value|, mass {TOL_MASS:.0e}, "
-        f"lse {TOL_LSE:.0e}; pool codes, payload and "
+        f"lse {TOL_LSE:.0e}, mlstm f32 {RTOL_ML:.0e} x (|value| + the "
+        f"head's largest |value|); pool codes, payload and "
         f"positions exact, scales <= 1 ULP)")
     return errs
 
@@ -533,18 +653,23 @@ class RecordingExecutor(PagedTorchExecutor):
     whole-prompt prefill: the prompt and 0), the token chosen, the row's
     top-2 logit gap as a fraction of the row's logit standard deviation
     (phase 4 judges divergences with it) and, with `keep_logits`, the rows'
-    logits on the host (phase 6 judges with them)."""
+    logits on the host (phases 6 and 7 judge with them); and the mLSTM scan
+    kernel's launches made inside decode ticks (there should be none)."""
 
     def __init__(self, *a, keep_logits=False, **kw):
         super().__init__(*a, **kw)
         self.calls = []
         self._fed = []
         self.keep_logits = keep_logits
+        self.decode_mlstm_launches = 0
 
     def decode(self, tokens, positions, tables, lanes=None):
         rows = lanes if lanes is not None else range(len(tokens))
         self._fed = [(int(tokens[i]), int(positions[i])) for i in rows]
-        return super().decode(tokens, positions, tables, lanes)
+        before = mlstm_scan.launches
+        out = super().decode(tokens, positions, tables, lanes)
+        self.decode_mlstm_launches += mlstm_scan.launches - before
+        return out
 
     def prefill_batch(self, lanes, prompts, tables):
         self._fed = [(tuple(int(t) for t in p), 0) for p in prompts]
@@ -566,19 +691,25 @@ class RecordingExecutor(PagedTorchExecutor):
         return toks
 
 
+# every kernel of the path, or every kernel's plain version
+SETTINGS = {"kernel": ModelSettings(),
+            "naive": ModelSettings(attn=A.AttnSettings(backend="naive"),
+                                   mlstm_backend="naive")}
+
+
 def serve(cfg, params, trace, context, n_blocks, kv_quant, backend="kernel",
-          record=False, keep_logits=False):
+          record=False, keep_logits=False, prefill_budget=0):
     kw = dict(keep_logits=keep_logits) if record else {}
     cls = RecordingExecutor if record else PagedTorchExecutor
     ex = cls(params, cfg, n_lanes=LANES, n_blocks=n_blocks, kv_block=KV_BLOCK,
              context=context, compact=True, chunk=CHUNK, kv_quant=kv_quant,
-             settings=ModelSettings(attn=A.AttnSettings(backend=backend)),
-             device=DEV, **kw)
-    if not all(t.is_cuda for t in ex.pool["units"][0].values()):
+             settings=SETTINGS[backend], device=DEV, **kw)
+    if not all(t.device.type == DEV.type for P in ex.pool["units"]
+               for t in P.values()):
         fail("the pool is not on the card")
     alloc = BlockAllocator(n_blocks, KV_BLOCK)
     eng = Engine(ex, LANES, allocator=alloc, chunk_prefill=CHUNK,
-                 audit="strict")
+                 prefill_budget=prefill_budget, audit="strict")
     t0 = time.time()
     rep = eng.run(trace)
     torch.cuda.synchronize()
@@ -664,10 +795,12 @@ def phase_main(cfg, params):
 # Phase 4: kernels vs plain versions end to end, 4 layers
 # ---------------------------------------------------------------------------
 
-def phase_identity(cfg, params, trace, context):
-    cfg4 = depth_variant(cfg, 4)
+def phase_identity(cfg, params, trace, context, units=4, tag="4"):
+    """The trace at `units` repeats of the unit pattern, every kernel of the
+    path against every plain version."""
+    cfg4 = depth_variant(cfg, units)
     p4 = dict(params)
-    p4["units"] = [{name: {k: v[:4] for k, v in sub.items()}
+    p4["units"] = [{name: {k: v[:units] for k, v in sub.items()}
                     for name, sub in unit.items()}
                    for unit in params["units"]]
     n_blocks = LANES * (-(-context // KV_BLOCK))
@@ -694,13 +827,14 @@ def phase_identity(cfg, params, trace, context):
     if same != len(ta) and not fresh:
         fail("streams differ but no call diverged on equal inputs")
     worst = max((max(f[4], f[5]) for f in fresh), default=0.0)
-    log(f"[4] 4 layers, kernels vs plain versions on the card: {same}/"
+    log(f"[{tag}] {cfg4.name}, {cfg4.n_layers} layers, kernels vs plain "
+        f"versions on the card: {same}/"
         f"{len(ta)} token streams equal; {len(fresh)} fresh divergences "
         f"(same input, different token), largest top-2 gap among them "
         f"{worst:.4f} of the row's logit std (bound {GAP_BOUND})")
     if fresh:
         i, j, a_, b_, ga, gb = fresh[0]
-        log(f"[4]   first: call {i} row {j}: kernel token {a_} (gap "
+        log(f"[{tag}]   first: call {i} row {j}: kernel token {a_} (gap "
             f"{ga:.4f}), plain token {b_} (gap {gb:.4f})")
     if worst >= GAP_BOUND:
         fail("token divergence at a decided argmax: a fault, not a near-tie")
@@ -775,13 +909,10 @@ def rel_diff(a, b):
     return float((a - b).std() / a.std())
 
 
-def phase_greedy(cfg, params, trace, context, reps, calls):
-    rids = greedy_subset(trace)
+def replay_greedy(cfg, params, trace, rids, context):
+    """Requests `rids` of the trace through greedy_generate, one at a
+    time: ({rid: tokens}, wall seconds)."""
     by_rid = {r.rid: r for r in trace}
-    eng = {c.rid: list(c.tokens) for c in reps["none"].completions}
-    paged_decode.launches = 0
-    paged_prefill.launches = 0
-    flash_attention.launches = 0
     outs = {}
     t0 = time.time()
     for rid in rids:
@@ -790,13 +921,16 @@ def phase_greedy(cfg, params, trace, context, reps, calls):
         outs[rid] = SS.greedy_generate(params, cfg, prompt, req.max_new,
                                        context)[0].tolist()
     torch.cuda.synchronize()
-    dt = time.time() - t0
-    nfa = flash_attention.launches
-    if (nfa != cfg.n_layers * len(rids) or paged_decode.launches
-            or paged_prefill.launches):
-        fail(f"greedy launches: flash {nfa} (want {cfg.n_layers} x "
-             f"{len(rids)}), paged decode {paged_decode.launches}, "
-             f"paged prefill {paged_prefill.launches} (want 0)")
+    return outs, time.time() - t0
+
+
+def judge_greedy(tag, cfg, params, trace, rids, outs, dt, eng, calls,
+                 context, against, launches):
+    """Where a greedy stream `outs[rid]` splits from the engine's `eng[rid]`,
+    the rms difference of the two paths' logits at each token up to the
+    split (the engine's from its recorded `calls`); fails above
+    REL_BOUND."""
+    by_rid = {r.rid: r for r in trace}
     judged = []
     for rid in rids:
         g, e = outs[rid], eng[rid]
@@ -815,40 +949,64 @@ def phase_greedy(cfg, params, trace, context, reps, calls):
         judged.append((rid, d, g[d], e[d], gaps[d], erows[d][0], rel))
     equal = sum(outs[r] == eng[r] for r in rids)
     worst = max((max(j[6]) for j in judged), default=0.0)
-    log(f"[6] greedy_generate, {cfg.n_layers} layers, requests "
-        f"{list(rids)} (prompts "
-        f"{[len(by_rid[r].prompt) for r in rids]} tokens) in "
-        f"{dt:.2f}s: {equal}/{len(rids)} streams equal to the "
-        f"bf16-pool engine's; flash launches {nfa} = {cfg.n_layers} x "
-        f"{len(rids)}; largest rms logit difference up to a first "
+    log(f"[{tag}] greedy_generate, {cfg.n_layers} layers, requests "
+        f"{list(rids)} (prompts {[len(by_rid[r].prompt) for r in rids]} "
+        f"tokens) in {dt:.2f}s: {equal}/{len(rids)} streams equal to "
+        f"{against}; "
+        f"{launches}; largest rms logit difference up to a first "
         f"divergence {worst:.4f} of the logits' rms spread (bound "
         f"{REL_BOUND})")
     for rid, d, a_, b_, ga, ge, rel in judged:
-        log(f"[6]   request {rid}: first divergence at token {d}: greedy "
-            f"{a_} (top-2 gap {ga:.4f} of its logit std), engine {b_} "
-            f"(gap {ge:.4f}); rms logit difference by token 0..{d}: "
+        log(f"[{tag}]   request {rid}: first divergence at token {d}: "
+            f"greedy {a_} (top-2 gap {ga:.4f} of its logit std), engine "
+            f"{b_} (gap {ge:.4f}); rms logit difference by token 0..{d}: "
             f"{[round(x, 4) for x in rel]}")
     if worst >= REL_BOUND:
         fail("greedy and engine logits apart by more than rounding drift")
-    # controls: the greedy path against itself at batch 2 (the same prompt
-    # twice: other matrix-product shapes, nothing else), and with the flash
-    # kernel's plain version in its prefill — the drift that roundings
-    # alone leave at this depth
-    req = by_rid[rids[0]]
+
+
+def greedy_controls(tag, cfg, params, req, context, n_steps, plain_name,
+                    plain):
+    """Controls for judge_greedy: the greedy path against itself at batch 2
+    (the same prompt twice: other matrix-product shapes, nothing else) and
+    with the plain versions `plain` — the drift that roundings alone leave
+    at this depth (printed, not asserted)."""
     one = torch.tensor([req.prompt], dtype=torch.int32, device=DEV)
-    t1, _, r1 = greedy_gaps(cfg, params, one, req.max_new, context)
-    naive = ModelSettings(attn=A.AttnSettings(backend="naive"))
+    t1, _, r1 = greedy_gaps(cfg, params, one, n_steps, context)
     for name, (t2, _, r2) in (
             ("at batch 2", greedy_gaps(cfg, params, one.repeat(2, 1),
-                                       req.max_new, context)),
-            ("with the plain prefill attention",
-             greedy_gaps(cfg, params, one, req.max_new, context, naive))):
+                                       n_steps, context)),
+            (plain_name, greedy_gaps(cfg, params, one, n_steps, context,
+                                     plain))):
         n = next((i for i in range(len(t1)) if t1[i] != t2[i]), len(t1))
         rel = [round(rel_diff(r1[t], r2[t]), 4)
                for t in range(min(n + 1, len(t1)))]
-        log(f"[6] control, request {req.rid}: greedy {name} against "
-            f"greedy: tokens equal up to {n} of {len(t1)}; rms logit "
-            f"difference by token: {rel}")
+        log(f"[{tag}] control, request {req.rid} ({len(req.prompt)} "
+            f"tokens): greedy {name} against greedy: tokens equal up to {n} "
+            f"of {len(t1)}; rms logit difference by token: {rel}")
+
+
+def phase_greedy(cfg, params, trace, context, reps, calls):
+    rids = greedy_subset(trace)
+    by_rid = {r.rid: r for r in trace}
+    eng = {c.rid: list(c.tokens) for c in reps["none"].completions}
+    paged_decode.launches = 0
+    paged_prefill.launches = 0
+    flash_attention.launches = 0
+    outs, dt = replay_greedy(cfg, params, trace, rids, context)
+    nfa = flash_attention.launches
+    if (nfa != cfg.n_layers * len(rids) or paged_decode.launches
+            or paged_prefill.launches):
+        fail(f"greedy launches: flash {nfa} (want {cfg.n_layers} x "
+             f"{len(rids)}), paged decode {paged_decode.launches}, "
+             f"paged prefill {paged_prefill.launches} (want 0)")
+    judge_greedy("6", cfg, params, trace, rids, outs, dt, eng, calls,
+                 context, "the bf16-pool engine's",
+                 f"flash launches {nfa} = {cfg.n_layers} x {len(rids)}")
+    req = by_rid[rids[0]]
+    greedy_controls("6", cfg, params, req, context, req.max_new,
+                    "with the plain prefill attention",
+                    ModelSettings(attn=A.AttnSettings(backend="naive")))
     ref_cache = {(tuple(by_rid[r].prompt), by_rid[r].max_new):
                  np.asarray(outs[r], np.int32) for r in rids}
     t0 = time.time()
@@ -862,6 +1020,206 @@ def phase_greedy(cfg, params, trace, context, reps, calls):
         f"{agree['none'].describe()}")
     s = max(len(by_rid[r].prompt) for r in rids)
     return nfa, (1, s)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: xlstm-1.3b at full width and depth (mLSTM + sLSTM lane state)
+# ---------------------------------------------------------------------------
+
+XL_SEED = SEED + 5
+XL_CONTROL_STEPS = 3
+
+
+def make_xlstm_trace(cfg):
+    """12 requests. Whole prompts (up to CHUNK) of 64, 128 or 256 tokens
+    only: a whole prompt of 128 < p <= 256 that 128 does not divide is
+    refused by both packages (ROADMAP C, reference fault F6). Chunked
+    prompts of 512-2048, two of 1000 among them, so that chunk calls carry
+    padded steps through the scan. With this seed eight long prompts
+    arrive within three ticks, and a prefill budget of a chunk per lane
+    (the capacity plan's prefill_tokens) lets chunk calls reach all 8
+    lanes: the scan's serving shape [32, 256, 1024]."""
+    return synthetic_trace(12, vocab_size=cfg.vocab_size, seed=SEED + 10,
+                           prompt_lens=(64, 128, 256, 512, 1000, 1536, 2048),
+                           gen_lens=(16, 24, 32), mean_interarrival=1.0)
+
+
+def replayable(p):
+    """greedy_generate prefills a whole prompt: min(128, p) must divide p."""
+    return p <= 128 or p % 128 == 0
+
+
+def n_mixers(cfg, kind):
+    return sum(1 for b in cfg.blocks() if b.mixer == kind)
+
+
+def phase_xlstm(phases):
+    """Phase 7. Returns what the `kernels` line needs of it."""
+    cfg = get_config("xlstm-1.3b")
+    nm = n_mixers(cfg, "mlstm")
+    gen = torch.Generator(device=DEV).manual_seed(XL_SEED)
+    t0 = time.time()
+    params = init_params(gen, cfg, device=DEV)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    f32 = sum(t.numel() * 4 for t in leaves if t.dtype == torch.float32)
+    log(f"[7] {cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} layers ({nm} "
+        f"mLSTM + {n_mixers(cfg, 'slstm')} sLSTM), {cfg.n_heads} heads, "
+        f"inner {int(cfg.mlstm_proj_factor * cfg.d_model)}, vocab "
+        f"{cfg.vocab_size}: {w_bytes / 1e9:.3f} GB of weights ({f32 / 1e9:.3f}"
+        f" GB of it f32 gate leaves) made on the card from seed {XL_SEED} in "
+        f"{time.time() - t0:.1f}s")
+    trace = make_xlstm_trace(cfg)
+    lens = [len(r.prompt) for r in trace]
+    if min(lens) > CHUNK or max(lens) <= CHUNK:
+        fail("the trace must hold prompts both up to and above the chunk")
+    context = trace_context(trace)
+    plan = plan_pool(cfg, trace, context, "none")
+    sh = dataclasses.replace(ShapeConfig("serve", DECODE, context, LANES),
+                             global_batch=LANES)
+    lane_pred = LANES * PR.lane_bytes_per_device(
+        cfg, sh, PR.MemoryPlan(kv_block_size=KV_BLOCK), MESH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+    for mod in (paged_decode, paged_prefill, flash_attention, mlstm_scan):
+        mod.launches = 0
+    ex, rep, dt = serve(cfg, params, trace, context, plan["pool_blocks"],
+                        "none", record=True, keep_logits=True,
+                        prefill_budget=LANES * CHUNK)
+    nml = mlstm_scan.launches
+    peak = torch.cuda.max_memory_allocated()
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for P in ex.pool["units"] + ex.pool["tail"]
+                     for t in P.values())
+    if rep.prefill_calls <= 0 or ex.chunk_calls <= 0:
+        fail(f"whole-prompt prefill calls {rep.prefill_calls}, chunk calls "
+             f"{ex.chunk_calls}: both paths must run")
+    want = nm * (rep.prefill_calls + ex.chunk_calls)
+    other = (paged_decode.launches, paged_prefill.launches,
+             flash_attention.launches)
+    if nml <= 0 or nml != want or ex.decode_mlstm_launches or any(other):
+        fail(f"launch counters: mlstm {nml} (want {nm} x "
+             f"({rep.prefill_calls} + {ex.chunk_calls}) = {want}), in decode "
+             f"ticks {ex.decode_mlstm_launches} (want 0), attention kernels "
+             f"{other} (want 0)")
+    shapes = {k: sorted(v) for k, v in ex._shapes.items()}
+    gen_tokens = sum(len(c.tokens) for c in rep.completions)
+    log(f"[7] {cfg.name} {cfg.n_layers} layers: {len(rep.completions)}/"
+        f"{len(trace)} requests, {rep.prefill_tokens} prompt tokens "
+        f"({rep.prefill_calls} whole-prompt prefill calls, {ex.chunk_calls} "
+        f"chunk calls), {gen_tokens} generated tokens in {ex.decodes} decode "
+        f"ticks, {rep.ticks} ticks, {dt:.2f}s wall; allocator "
+        f"{plan['pool_blocks']} blocks (nothing paged; capacity model "
+        f"allows {plan['capacity_blocks']}); mlstm launches {nml} = {nm} x "
+        f"({rep.prefill_calls} + {ex.chunk_calls}), 0 in decode ticks; "
+        f"audit clean; shapes {shapes}")
+    pred = plan["resident"] + plan["transient"]
+    log(f"[7] WSMC: predicted resident {plan['resident'] / 1e9:.3f} GB (lane "
+        f"state {lane_pred / 1e9:.3f} GB = {LANES} lanes x "
+        f"{lane_pred / LANES / 1e9:.4f} GB) + transient "
+        f"{plan['transient'] / 1e9:.3f} GB = {pred / 1e9:.3f} GB; measured: "
+        f"pool leaves {pool_bytes / 1e9:.3f} GB, "
+        f"torch.cuda.max_memory_allocated() {peak / 1e9:.3f} GB (weights "
+        f"{w_bytes / 1e9:.3f} GB, allocated before the run "
+        f"{base_alloc / 1e9:.3f} GB); measured / predicted = "
+        f"{peak / pred:.4f}")
+    calls = ex.calls
+    del ex
+    t0 = time.time()
+    greedy_s = xlstm_greedy(cfg, params, trace, context, rep, calls)
+    log(f"[7] greedy replay {time.time() - t0:.2f}s")
+    if 4 in phases:
+        t0 = time.time()
+        phase_identity(cfg, params, trace, context, units=1, tag="7")
+        log(f"[7] 8-layer kernel-vs-plain runs {time.time() - t0:.2f}s")
+    chunk_w = max(w for w, _ in shapes["chunk"])
+    layer_times(cfg, params, chunk_w)
+    big = max([(4 * chunk_w, CHUNK)]
+              + [(4 * w, p) for w, p in shapes["prefill"]],
+              key=lambda x: x[0] * x[1])
+    return {"launches": nml, "largest": big, "greedy": greedy_s}
+
+
+def xlstm_greedy(cfg, params, trace, context, rep, calls):
+    """A subset of the trace through greedy_generate at full width and
+    depth, held against the engine's streams; where one splits, the rms
+    difference of the two paths' logits is judged as phase 6 does."""
+    nm = n_mixers(cfg, "mlstm")
+    lens = {r.rid: len(r.prompt) for r in trace}
+    ok = [r for r in lens if replayable(lens[r])]
+    longest = max(lens[r] for r in ok)
+    picks = [next(r for r in ok if lens[r] <= CHUNK),
+             next(r for r in ok if lens[r] == longest),
+             next((r for r in ok if CHUNK < lens[r] < longest), ok[0])]
+    rids = tuple(dict.fromkeys(picks))
+    eng = {c.rid: list(c.tokens) for c in rep.completions}
+    mlstm_scan.launches = 0
+    outs, dt = replay_greedy(cfg, params, trace, rids, context)
+    if mlstm_scan.launches != nm * len(rids):
+        fail(f"greedy mlstm launches {mlstm_scan.launches} (want {nm} x "
+             f"{len(rids)})")
+    judge_greedy("7", cfg, params, trace, rids, outs, dt, eng, calls,
+                 context, "the engine's",
+                 f"mlstm launches {nm} x {len(rids)}")
+    # controls on the longest replayed prompt (chunked in the engine), its
+    # first XL_CONTROL_STEPS tokens
+    req = next(r for r in trace if r.rid == picks[1])
+    greedy_controls("7", cfg, params, req, context,
+                    min(XL_CONTROL_STEPS, req.max_new), "with the plain scan",
+                    SETTINGS["naive"])
+    return dt
+
+
+def host_ms(fn, reps):
+    """Wall time of fn() on the host clock, ending in a synchronize: what a
+    caller waits for, launch overhead included."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.time() - t0) / reps * 1e3
+
+
+def layer_times(cfg, params, w):
+    """Where a chunk call and a decode tick spend their time: one mLSTM and
+    one sLSTM block at [w, CHUNK] and [w, 1] (host clock, synchronised), and
+    the gather and scatter of w lanes' state (CUDA events)."""
+    x = torch.randn((w, CHUNK, cfg.d_model), device=DEV).to(torch.bfloat16)
+    pos = torch.arange(CHUNK, dtype=torch.int32, device=DEV)[None].repeat(
+        w, 1)
+    pm = {k: v[0] for k, v in params["units"][0]["mixer"].items()}
+    ps = {k: v[0] for k, v in params["units"][7]["mixer"].items()}
+    sm = R.mlstm_state_init(cfg, w, DEV)
+    ss = R.slstm_state_init(cfg, w, DEV)
+    t = {
+        "mlstm chunk": host_ms(lambda: R.mlstm_apply(
+            pm, cfg, x, state=sm, positions=pos), 3),
+        "slstm chunk": host_ms(lambda: R.slstm_apply(
+            ps, cfg, x, state=ss, positions=pos), 2),
+        "mlstm decode": host_ms(lambda: R.mlstm_apply(
+            pm, cfg, x[:, :1], state=sm, decode=True), 10),
+        "slstm decode": host_ms(lambda: R.slstm_apply(
+            ps, cfg, x[:, :1], state=ss, decode=True), 10),
+    }
+    pool = SS.init_paged_pool(cfg, LANES, 2, KV_BLOCK, KV_BLOCK, device=DEV)
+    ids = torch.arange(w, dtype=torch.int32, device=DEV)
+    sub = SS.gather_pool_lanes(pool, ids)
+    nbytes = sum(v.numel() * v.element_size()
+                 for P in sub["units"] + sub["tail"] for v in P.values())
+    g = time_ms(lambda: SS.gather_pool_lanes(pool, ids), 3)
+    sc = time_ms(lambda: SS.scatter_pool_lanes(pool, sub, ids), 3)
+    log(f"[7] per block at width {w} (host ms, synchronised): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in t.items()) + f"; a step runs "
+        f"{n_mixers(cfg, 'mlstm')} mLSTM + {n_mixers(cfg, 'slstm')} sLSTM "
+        f"blocks; "
+        f"gather of {w} lanes' state ({nbytes / 1e9:.3f} GB) {g:.3f} ms, "
+        f"scatter {sc:.3f} ms (each {nbytes / (g * 1e-3) / 1e12:.2f} / "
+        f"{nbytes / (sc * 1e-3) / 1e12:.2f} TB/s read + written)")
+    del pool, sub
 
 
 # ---------------------------------------------------------------------------
@@ -1027,61 +1385,135 @@ def kernel_rows(cfg, counts, shapes, errs, greedy=None):
 
 # ---------------------------------------------------------------------------
 
+def time_mlstm(gen, bh, s, dk, dv, chunk=128):
+    """The mLSTM scan at [bh, s, dk / dv], bf16 q/k/v and a carried f32
+    state (chunk calls carry one): kernel and plain version, and the bytes
+    and operations the function needs (f32 arithmetic)."""
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+    q, k, v = (rnd(bh, s, d).to(bf) for d in (dk, dk, dv))
+    ig, fg = rnd(bh, s), rnd(bh, s) + 2.0
+    init = (rnd(bh, dk, dv), rnd(bh, dk).abs(), rnd(bh, 1))
+    args = (q, k, v, ig, fg)
+    ms = time_ms(lambda: mlstm_scan.mlstm_scan_fwd(*args, chunk=chunk,
+                                                   initial=init), 5)
+    plain = time_ms(lambda: mlstm_scan.mlstm_scan_plain(*args, chunk=chunk,
+                                                        initial=init), 3)
+    c = min(chunk, s)
+    nc = s // c
+    # q, k, v and out in bf16, gates f32, the state read and written once
+    nbytes = (2 * bh * s * (2 * dk + dv) + 2 * bh * s * 4
+              + 2 * bh * (dk * dv + dk + 1) * 4 + 2 * bh * s * dv)
+    # per (head, chunk): q k^T, the weighted scores times v, q C, the C
+    # update (2 operations per product), q.n and the n update
+    flops = bh * nc * (2.0 * c * c * dk + 2.0 * c * c * dv
+                       + 4.0 * c * dk * dv + 4.0 * c * dk)
+    # what the kernel computes: q k^T once per 32-column tile of dv
+    tiles = -(-dv // 32)
+    kernel_flops = flops + bh * nc * 2.0 * c * c * dk * (tiles - 1)
+    return ms, plain, nbytes, flops, kernel_flops
+
+
+def mlstm_row(xl, err):
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    cfg = get_config("xlstm-1.3b")
+    hd = int(cfg.mlstm_proj_factor * cfg.d_model) // cfg.n_heads
+    bh, s = xl["largest"]
+    ms, plain, nbytes, flops, kflops = time_mlstm(gen, bh, s, hd, hd)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return {"name": "mlstm_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mlstm_scan.cu",
+            "replaces": "src/repro/kernels/mlstm_scan.py:125",
+            "launches": xl["launches"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            "shape": {"folded_heads": bh, "positions": s, "dk": hd, "dv": hd,
+                      "chunk": min(128, s)},
+            "bytes": nbytes, "operations": flops,
+            "kernel_operations": kflops}
+
+
+def run_mistral(phases, errs):
+    """Phases 3-6 on mistral-nemo-12b; returns its kernels' rows."""
+    cfg = get_config("mistral-nemo-12b")
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    t0 = time.time()
+    params = init_params(gen, cfg, device=DEV)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    torch.cuda.synchronize()
+    log(f"[3] {cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} layers, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads x "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}: {n_bytes / 1e9:.2f} GB of bf16 weights made "
+        f"on the card from seed {SEED} in {time.time() - t0:.1f}s")
+    t0 = time.time()
+    (trace, context, counts, shapes, plans, peak, reps,
+     calls) = phase_main(cfg, params)
+    log(f"[3] phase 3 {time.time() - t0:.2f}s")
+    if 4 in phases:
+        t0 = time.time()
+        phase_identity(cfg, params, trace, context)
+        log(f"[4] phase 4 {time.time() - t0:.2f}s")
+    if 5 in phases:
+        for kv_quant, plan in plans.items():
+            pred = plan["resident"] + plan["transient"]
+            log(f"[5] WSMC kv_quant={kv_quant}: predicted resident "
+                f"{plan['resident'] / 1e9:.3f} GB + transient "
+                f"{plan['transient'] / 1e9:.3f} GB = {pred / 1e9:.3f} "
+                f"GB; torch.cuda.max_memory_allocated() "
+                f"{peak[kv_quant] / 1e9:.3f} GB; measured / predicted = "
+                f"{peak[kv_quant] / pred:.4f} (weights "
+                f"{n_bytes / 1e9:.3f} GB, pool "
+                f"{(plan['pool_blocks'] + 1) * plan['per_block'] / 1e9:.3f}"
+                f" GB)")
+    greedy = None
+    if 6 in phases:
+        t0 = time.time()
+        greedy = phase_greedy(cfg, params, trace, context, reps, calls)
+        log(f"[6] phase 6 {time.time() - t0:.2f}s")
+    return kernel_rows(cfg, counts, shapes, errs, greedy)
+
+
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7}
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
                     help="comma-separated phases to run (1 always runs)")
     args = ap.parse_args()
     phases = {int(x) for x in args.phases.split(",")}
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     errs = {"paged_decode": None, "paged_prefill": None,
-            "flash_attention": None}
+            "flash_attention": None, "mlstm_scan": None}
     if 2 in phases:
+        t0 = time.time()
         errs = phase_kernels()
+        log(f"[2] phase 2 {time.time() - t0:.2f}s")
     rows = []
     if 3 in phases:
-        cfg = get_config("mistral-nemo-12b")
-        gen = torch.Generator(device=DEV).manual_seed(SEED)
+        rows += run_mistral(phases, errs)
+        torch.cuda.empty_cache()
+    if 7 in phases:
         t0 = time.time()
-        params = init_params(gen, cfg, device=DEV)
-        n_bytes = sum(t.numel() * t.element_size()
-                      for t in _leaves(params))
-        torch.cuda.synchronize()
-        log(f"[3] {cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} layers, "
-            f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads x "
-            f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
-            f"{cfg.vocab_size}: {n_bytes / 1e9:.2f} GB of bf16 weights made "
-            f"on the card from seed {SEED} in {time.time() - t0:.1f}s")
-        (trace, context, counts, shapes, plans, peak, reps,
-         calls) = phase_main(cfg, params)
-        if 4 in phases:
-            phase_identity(cfg, params, trace, context)
-        if 5 in phases:
-            for kv_quant, plan in plans.items():
-                pred = plan["resident"] + plan["transient"]
-                log(f"[5] WSMC kv_quant={kv_quant}: predicted resident "
-                    f"{plan['resident'] / 1e9:.3f} GB + transient "
-                    f"{plan['transient'] / 1e9:.3f} GB = {pred / 1e9:.3f} "
-                    f"GB; torch.cuda.max_memory_allocated() "
-                    f"{peak[kv_quant] / 1e9:.3f} GB; measured / predicted = "
-                    f"{peak[kv_quant] / pred:.4f} (weights "
-                    f"{n_bytes / 1e9:.3f} GB, pool "
-                    f"{(plan['pool_blocks'] + 1) * plan['per_block'] / 1e9:.3f}"
-                    f" GB)")
-        greedy = None
-        if 6 in phases:
-            greedy = phase_greedy(cfg, params, trace, context, reps, calls)
-        rows = kernel_rows(cfg, counts, shapes, errs, greedy)
-        for r in rows:
-            lib = ("" if r["library_ms"] is None else
-                   f", library {r['library_ms']:.4f} ms")
-            log(f"[k] {r['name']}: {r['ms']:.4f} ms at {r['shape']}, plain "
-                f"{r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
-                f"by {r['bound_by']}, {r['launches']} launches on its path")
+        xl = phase_xlstm(phases)
+        log(f"[7] phase 7 {time.time() - t0:.2f}s")
+        rows.append(mlstm_row(xl, errs["mlstm_scan"]))
+    for r in rows:
+        lib = ("" if r["library_ms"] is None else
+               f", library {r['library_ms']:.4f} ms")
+        log(f"[k] {r['name']}: {r['ms']:.4f} ms at {r['shape']}, plain "
+            f"{r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
+            f"by {r['bound_by']}, {r['launches']} launches on its path")
     log(f"total {time.time() - t_start:.1f}s")
-    if not {1, 2, 3, 4, 5, 6} <= phases:
+    if not ALL_PHASES <= phases:
         log("partial run (not every phase): no kernels line, no result line")
         return 0
     print(json.dumps({"kernels": rows}), flush=True)

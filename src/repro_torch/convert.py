@@ -12,8 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.layers import torch_dtype
-from repro_torch.models.model import require_device
+from repro_torch.models.model import init_params, require_device
 
 
 def _to_tensor(a, dtype, device):
@@ -31,17 +30,48 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def params_from_jax(numpy_tree, param_dtype="bfloat16", device="cuda"):
+def params_from_jax(numpy_tree, cfg, device="cuda"):
     """A parameter tree of numpy arrays (same nesting and leaf layout as the
-    reference package's `init_params`) -> this package's params: every
-    floating leaf cast to `param_dtype`, on `device` (default "cuda";
-    raises without a CUDA device; the tests pass "cpu")."""
-    dt = torch_dtype(param_dtype)
+    reference package's `init_params` for `cfg`) -> this package's params
+    on `device` (default "cuda"; raises without a CUDA device; the tests
+    pass "cpu"). Each leaf gets the dtype the reference gives it, which
+    the numpy tree cannot carry (bf16 leaves arrive upcast to float32): it
+    is read off this package's own `init_params` tree for `cfg`, built on
+    the meta device as a template (no memory, no values). So projections
+    take cfg.param_dtype and leaves the reference keeps in f32 (the mLSTM
+    gate projections and biases, the sLSTM recurrence and bias) stay f32.
+    A leaf whose shape differs from the template's raises ValueError."""
     device = require_device(device)
-    return _map(numpy_tree, lambda a: _to_tensor(a, dt, device))
+    gen = torch.Generator().manual_seed(0)
+    template = init_params(gen, cfg, device="meta")
+
+    def conv(a, t):
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"leaf of shape {a.shape}, template "
+                             f"{tuple(t.shape)}")
+        return _to_tensor(a, t.dtype, device)
+
+    return _zip_map(numpy_tree, template, conv)
 
 
+def _zip_map(tree, template, fn):
+    if isinstance(tree, dict):
+        if sorted(tree) != sorted(template):
+            raise ValueError(f"keys {sorted(tree)} != {sorted(template)}")
+        return {k: _zip_map(v, template[k], fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        if len(tree) != len(template):
+            raise ValueError(f"{len(tree)} entries, template {len(template)}")
+        return [_zip_map(v, t, fn) for v, t in zip(tree, template)]
+    return fn(tree, template)
+
+
+# payload leaves cast to `fp_dtype` (pool "kb"/"vb", ring "k"/"v"), and
+# per-lane leaves the reference keeps in bf16 (conv tails of recurrent
+# blocks); every other floating leaf (scales, recurrent states) is f32
 _POOL_FLOAT = ("kb", "vb", "k", "v")
+_POOL_BF16 = ("conv",)
 
 
 def pool_from_jax(numpy_tree, device="cuda", fp_dtype=torch.bfloat16):
@@ -50,18 +80,25 @@ def pool_from_jax(numpy_tree, device="cuda", fp_dtype=torch.bfloat16):
     tensors on `device` (default "cuda"; raises without a CUDA device).
     Integer leaves (codes, positions) keep their dtype; fp payload leaves
     "kb"/"vb" (pool) and "k"/"v" (ring) are cast to `fp_dtype` (bf16
-    payloads arrive upcast to float32); scale leaves stay float32."""
+    payloads arrive upcast to float32); the per-lane "conv" tails of
+    recurrent blocks to bf16; scale leaves and the recurrent states (mLSTM
+    C, n, m; sLSTM c, n, h, m) stay float32."""
     device = require_device(device)
+
     def conv(tree):
         if isinstance(tree, dict):
             out = {}
             for k, v in tree.items():
                 if isinstance(v, (dict, list, tuple)):
                     out[k] = conv(v)
-                else:
-                    a = np.asarray(v)
-                    fp = k in _POOL_FLOAT and a.dtype.kind == "f"
-                    out[k] = _to_tensor(a, fp_dtype if fp else None, device)
+                    continue
+                a = np.asarray(v)
+                dt = None
+                if a.dtype.kind == "f" and k in _POOL_FLOAT:
+                    dt = fp_dtype
+                elif a.dtype.kind == "f" and k in _POOL_BF16:
+                    dt = torch.bfloat16
+                out[k] = _to_tensor(a, dt, device)
             return out
         if isinstance(tree, (list, tuple)):
             return [conv(v) for v in tree]

@@ -76,6 +76,16 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
+def groupnorm_heads(scale: torch.Tensor, x: torch.Tensor, n_heads: int,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """Per-head RMS groupnorm over the trailing dim reshaped to heads."""
+    b, s, inner = x.shape
+    xf = x.float().reshape(b, s, n_heads, inner // n_heads)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = (xf * torch.rsqrt(var + eps)).reshape(b, s, inner)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Activations
 # ---------------------------------------------------------------------------
@@ -126,6 +136,54 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.split(x.float(), half, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (recurrent blocks) — supports streaming decode
+# ---------------------------------------------------------------------------
+
+def conv1d_init(width: int, channels: int, dtype, device,
+                repeats: int = 0) -> torch.Tensor:
+    shape = (width, channels) if not repeats else (repeats, width, channels)
+    return torch.full(shape, 1.0 / width, dtype=torch_dtype(dtype),
+                      device=device)
+
+
+def causal_conv1d(w: torch.Tensor, x: torch.Tensor, state=None,
+                  valid_len=None):
+    """Depthwise causal conv. x: [b, s, c]; state: [b, width-1, c] history.
+
+    The taps are elementwise products summed in x's dtype, one rounding per
+    operation as in the reference package (no F.conv1d: cuDNN would run it
+    in TF32 on the card).
+
+    `valid_len` [b] marks rows whose trailing positions are padding
+    (serving chunked prefill): the carried history then ends at the last
+    VALID input. valid_len == s reproduces the default carry; valid_len ==
+    0 passes `state` through unchanged.
+
+    Returns (y [b, s, c], new_state [b, width-1, c])."""
+    width = w.shape[0]
+    s = x.shape[1]
+    if state is None:
+        state = torch.zeros((x.shape[0], width - 1, x.shape[2]),
+                            dtype=x.dtype, device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = torch.zeros_like(x)
+    for i in range(width):  # width is tiny (4): unrolled taps
+        y = y + w[i].to(x.dtype) * xp[:, i:i + s]
+    if width <= 1:
+        new_state = state
+    elif valid_len is None:
+        new_state = xp[:, s:]
+    else:
+        # window of width-1 inputs ending at the last valid position: xp
+        # rows are [state (width-1) | x (s)], so it starts at valid_len
+        idx = valid_len.long()[:, None] + torch.arange(
+            width - 1, device=x.device)
+        new_state = torch.gather(xp, 1,
+                                 idx[..., None].expand(-1, -1, xp.shape[2]))
+    return y, new_state
 
 
 # ---------------------------------------------------------------------------

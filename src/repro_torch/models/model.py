@@ -7,10 +7,11 @@ that axis, this package runs a Python loop over the layers and hands each
 layer a view `leaf[r]` of the stacked tensors; caches are updated in place
 through those views.
 
-Ported: attention mixers with a dense MLP; the sequence forward without a
-cache, the prefill that builds ring caches (`build_cache`) or writes a
-paged pool, and decode and chunk-append forwards against a cache. Recurrent
-mixers and MoE raise NotImplementedError naming what lifts them.
+Ported: attention mixers with a dense MLP, and xLSTM's mLSTM and sLSTM
+mixers; the sequence forward without a cache, the prefill that builds ring
+caches and recurrent states (`build_cache`) or writes a paged pool, and
+decode and chunk-append forwards against a cache. RG-LRU and MoE raise
+NotImplementedError naming what lifts them.
 """
 from __future__ import annotations
 
@@ -20,8 +21,10 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import (ATTN, MLP_DENSE, MLP_MOE, MLP_NONE,
-                                      BlockSpec, ModelConfig)
-from repro_torch.models import attention, layers
+                                      MLSTM, RGLRU, SLSTM, BlockSpec,
+                                      ModelConfig)
+from repro_torch.kernels.ops import MLSTM_BACKENDS
+from repro_torch.models import attention, layers, recurrent
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +34,15 @@ class ModelSettings:
     # returns the ring caches the prompt fills; with a paged pool given it
     # writes the prompt's K/V into the pool through the block tables
     build_cache: bool = False
+    # the mLSTM scan: "kernel" (the CUDA kernel on the card) or "naive" (its
+    # plain version, on either device), and its chunk length
+    mlstm_backend: str = "kernel"
+    mlstm_chunk: int = 128
+
+    def __post_init__(self):
+        if self.mlstm_backend not in MLSTM_BACKENDS:
+            raise ValueError(f"ModelSettings.mlstm_backend "
+                             f"{self.mlstm_backend!r} not in {MLSTM_BACKENDS}")
 
 
 def require_device(device) -> torch.device:
@@ -75,31 +87,78 @@ def mlp_apply(params, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 
 def _check_block(blk: BlockSpec):
-    if blk.mixer != ATTN:
-        raise NotImplementedError(
-            f"mixer {blk.mixer!r}: needs the recurrent-mixer slice "
-            "(mlstm_scan_fwd, sLSTM, RG-LRU)")
+    if blk.mixer == RGLRU:
+        raise NotImplementedError(recurrent.RGLRU_SLICE)
+    if blk.mixer not in (ATTN, MLSTM, SLSTM):
+        raise ValueError(blk.mixer)
     if blk.mlp == MLP_MOE:
         raise NotImplementedError("MoE MLP: needs the MoE slice")
     if blk.mlp not in (MLP_DENSE, MLP_NONE):
         raise ValueError(blk.mlp)
 
 
+_MIXER_INIT = {ATTN: attention.attn_init, MLSTM: recurrent.mlstm_init,
+               SLSTM: recurrent.slstm_init}
+
+
 def block_init(gen, cfg: ModelConfig, blk: BlockSpec, device,
                repeats: int = 0):
     _check_block(blk)
-    p: Dict[str, Any] = {"mixer": attention.attn_init(gen, cfg, device,
-                                                      repeats)}
+    p: Dict[str, Any] = {"mixer": _MIXER_INIT[blk.mixer](gen, cfg, device,
+                                                        repeats)}
     if blk.mlp == MLP_DENSE:
         p["mlp"] = mlp_init(gen, cfg, device, repeats)
     return p
 
 
+def state_shapes(cfg: ModelConfig, blk: BlockSpec, batch: int):
+    """{leaf: (shape, dtype)} of a recurrent block's per-lane state."""
+    _check_block(blk)
+    if blk.mixer == MLSTM:
+        return recurrent.mlstm_state_shapes(cfg, batch)
+    if blk.mixer == SLSTM:
+        return recurrent.slstm_state_shapes(cfg, batch)
+    raise ValueError(f"{blk.mixer} keeps no recurrent state")
+
+
 def block_cache_init(cfg: ModelConfig, blk: BlockSpec, batch: int,
                      context: int, dtype=torch.bfloat16, device="cuda"):
+    """An empty ring cache (attention) or a zero state (recurrent)."""
     _check_block(blk)
-    return attention.cache_init(cfg, blk, batch, context, dtype=dtype,
-                                device=device)
+    if blk.mixer == ATTN:
+        return attention.cache_init(cfg, blk, batch, context, dtype=dtype,
+                                    device=device)
+    return recurrent._zeros(state_shapes(cfg, blk, batch), device)
+
+
+def _recurrent_apply(params, cfg: ModelConfig, blk: BlockSpec, x, positions,
+                     cache, decode: bool, building: bool,
+                     settings: "ModelSettings"):
+    """An mLSTM / sLSTM mixer: (delta, state). Prefill starts from a zero
+    state. A cache passed in receives the new state IN PLACE and is
+    returned; at decode only rows with position >= 0 take it (full-width
+    ticks carry INERT rows — empty lanes, lanes mid-chunk-prefill — whose
+    pad-token step must not advance the lane's state): a masked copy,
+    nothing is written first and restored after."""
+    state = (block_cache_init(cfg, blk, x.shape[0], 0, device=x.device)
+             if building else cache)
+    if blk.mixer == MLSTM:
+        delta, new = recurrent.mlstm_apply(
+            params, cfg, x, state=state, decode=decode,
+            backend=settings.mlstm_backend, chunk=settings.mlstm_chunk,
+            positions=positions)
+    else:
+        delta, new = recurrent.slstm_apply(params, cfg, x, state=state,
+                                           decode=decode, positions=positions)
+    if cache is None or new is None:
+        return delta, new
+    live = (positions[:, 0] >= 0) if decode else None
+    for k, t in new.items():
+        if live is not None:
+            t = torch.where(live.reshape((-1,) + (1,) * (t.dim() - 1)), t,
+                            cache[k])
+        cache[k].copy_(t)
+    return delta, cache
 
 
 def block_apply(params, cfg: ModelConfig, blk: BlockSpec, x, positions,
@@ -107,14 +166,21 @@ def block_apply(params, cfg: ModelConfig, blk: BlockSpec, x, positions,
                 settings: ModelSettings = ModelSettings(),
                 block_tables=None):
     """Returns (x', cache, aux). A cache passed in is updated in place; with
-    settings.build_cache and no cache, the ring the prompt fills."""
+    settings.build_cache and no cache, the ring the prompt fills (attention)
+    or the state it leaves (recurrent)."""
     _check_block(blk)
     building = settings.build_cache and not decode
-    cache_arg = "build" if building and cache is None else cache
-    delta, new_cache, aux = attention.attn_apply(
-        params["mixer"], cfg, blk, x, positions, cache=cache_arg,
-        decode=decode, context=context, settings=settings.attn,
-        block_tables=block_tables, whole_prompt=building)
+    aux: Dict[str, Any] = {}
+    if blk.mixer == ATTN:
+        cache_arg = "build" if building and cache is None else cache
+        delta, new_cache, aux = attention.attn_apply(
+            params["mixer"], cfg, blk, x, positions, cache=cache_arg,
+            decode=decode, context=context, settings=settings.attn,
+            block_tables=block_tables, whole_prompt=building)
+    else:
+        delta, new_cache = _recurrent_apply(params["mixer"], cfg, blk, x,
+                                            positions, cache, decode,
+                                            building, settings)
     x = x + delta
     if blk.mlp == MLP_DENSE:
         x = x + mlp_apply(params["mlp"], cfg, x)
@@ -147,9 +213,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
 
 def init_cache(cfg: ModelConfig, batch: int, context: int,
                dtype=torch.bfloat16, device="cuda"):
-    """Ring cache tree mirroring the params layout (stacked over repeats):
-    every ring empty (pos -1). Raises if `device` is CUDA and there is no
-    CUDA device."""
+    """Cache tree mirroring the params layout (stacked over repeats): every
+    ring empty (pos -1), every recurrent state zero. Raises if `device` is
+    CUDA and there is no CUDA device."""
     device = require_device(device)
 
     def stacked(blk):

@@ -24,8 +24,15 @@ updates the pool's tensors IN PLACE and returns the same tree (the reference
 package returns new arrays from donated buffers). Whole-prompt prefill
 writes each layer's K/V into the pool as that layer runs, so the rings of
 all layers never exist at once (the reference builds them all, then
-scatters them: write_paged_prefill, kept here for a ring tree in hand). Not
-ported yet: the ring slot pool (ring/slot slice).
+scatters them: write_paged_prefill, kept here for a ring tree in hand).
+
+Recurrent blocks (xLSTM's mLSTM and sLSTM) keep their state in per-lane
+pool leaves ([repeats,] n_lanes, ...): a step at width w gathers the rows of
+its lanes into a sub-pool (a copy), runs on it, and scatters the rows back,
+dropping padding rows (lane id >= n_lanes). At xlstm-1.3b's full width the
+state is 0.70 GB per lane (42 mLSTM layers x 16.8 MB of C), so each
+direction copies that much per lane and step. Not ported yet: the ring slot
+pool and per-lane windowed rings (ring/slot slice).
 """
 from __future__ import annotations
 
@@ -111,10 +118,13 @@ def init_paged_pool(cfg: ModelConfig, n_lanes: int, n_blocks: int,
     head) f32 absmax scales in sibling "ks"/"vs" leaves. The pool is
     self-describing: read/write paths pick the codec off the leaf dtypes.
 
-    Position leaves start at -1 (invalid), payloads at zero. The pool is
-    made on `device` (default CUDA; raises without a CUDA device).
-    Layers that do not page (windowed / chunked rings, recurrent state) need
-    the ring/slot and recurrent slices and raise NotImplementedError."""
+    Recurrent blocks get per-lane leaves ([repeats,] n_lanes, ...: the
+    block's zero state, models.model.state_shapes), so a pool of an
+    all-recurrent model pages nothing. Position leaves start at -1
+    (invalid), payloads and states at zero. The pool is made on `device`
+    (default CUDA; raises without a CUDA device). Attention layers that do
+    not page (windowed / chunked rings) need the ring/slot slice and raise
+    NotImplementedError."""
     if context % block:
         raise ValueError(f"paged pool context {context} must be a multiple "
                          f"of the kv block size {block}")
@@ -147,9 +157,11 @@ def init_paged_pool(cfg: ModelConfig, n_lanes: int, n_blocks: int,
     def one_cache(blk):
         if is_paged_block(blk, context):
             return paged_leaf()
-        raise NotImplementedError(
-            f"per-lane cache for block {blk}: needs the ring/slot slice "
-            "(windowed layers) or the recurrent-mixer slice")
+        if blk.is_attn:
+            raise NotImplementedError(
+                f"per-lane ring for block {blk}: needs the ring/slot slice "
+                "(windowed layers)")
+        return M.state_shapes(cfg, blk, n_lanes)
 
     def materialize(spec, lead=()):
         shape, dt = spec
@@ -168,24 +180,27 @@ def init_paged_pool(cfg: ModelConfig, n_lanes: int, n_blocks: int,
 
 def write_paged_prefill(cfg: ModelConfig, pool, one, lanes, tables,
                         block: int):
-    """Write a width-W prefill ring tree `one` (make_prefill_step's, every
+    """Write a width-W prefill cache tree `one` (make_prefill_step's, every
     ring in identity layout: prefill positions start at 0 and the ring
-    spans the full context, so slot i holds position i) into the paged pool
-    through `tables` [W, mB], IN PLACE (attention.write_prompt_kv per
-    layer). Per-lane leaves (lanes [W]) are not ported yet. `block` must be
-    the pool's block size."""
+    spans the full context, so slot i holds position i) into the paged pool,
+    IN PLACE: paged layers through `tables` [W, mB]
+    (attention.write_prompt_kv per layer), per-lane leaves at rows `lanes`
+    [W] (ids >= n_lanes are padding and dropped). `block` must be the
+    pool's block size (any, for a pool with nothing paged)."""
     if block != pool_block_size(pool, block):
         raise ValueError(f"block {block} != the pool's "
                          f"{pool_block_size(pool)}")
     for P, o in zip(pool["units"], one["units"]):
         if not _is_paged_leaf(P):
-            raise _lane_leaves_unsupported()
+            _put_lanes(P, o, lanes, 1)
+            continue
         for r in range(cfg.repeats):
             A.write_prompt_kv({n: t[r] for n, t in P.items()}, tables,
                               o["k"][r], o["v"][r], o["pos"][r])
     for P, o in zip(pool["tail"], one["tail"]):
         if not _is_paged_leaf(P):
-            raise _lane_leaves_unsupported()
+            _put_lanes(P, o, lanes, 0)
+            continue
         A.write_prompt_kv(P, tables, o["k"], o["v"], o["pos"])
     return pool
 
@@ -195,7 +210,9 @@ def make_paged_prefill_step(cfg: ModelConfig,
     """Batched whole-prompt prefill into the paged pool: tokens [W, p] from
     position 0, lanes [W], tables [W, mB]. Each layer attends the prompts
     over themselves (the flash-attention kernel on the card) and writes
-    their K/V into the pool through the tables as it runs. Returns
+    their K/V into the pool through the tables as it runs; recurrent blocks
+    scan the prompts from a zero state into the gathered rows of `lanes`,
+    which are scattered back (padding lanes >= n_lanes dropped). Returns
     (last-token logits [W, V], the pool, updated in place)."""
     settings = settings or M.ModelSettings()
     psettings = dataclasses.replace(settings, build_cache=True)
@@ -232,36 +249,52 @@ def _is_paged_leaf(P) -> bool:
     return isinstance(P, dict) and "kb" in P
 
 
-def _lane_leaves_unsupported():
-    return NotImplementedError(
-        "per-lane pool leaves (windowed rings, recurrent state): need the "
-        "ring/slot and recurrent-mixer slices")
+def _put_lanes(P, o, lane_ids, axis: int):
+    """Rows of the per-lane leaves `o` into the pool leaves `P` at
+    `lane_ids` along `axis`, IN PLACE; rows whose id is >= n_lanes (padding)
+    are removed first: index_copy_ has no drop mode."""
+    n = next(iter(P.values())).shape[axis]
+    ids = lane_ids.to(device=next(iter(P.values())).device).long()
+    keep = torch.nonzero((ids >= 0) & (ids < n)).squeeze(1)
+    for k, t in P.items():
+        t.index_copy_(axis, ids[keep],
+                      o[k].index_select(axis, keep.to(o[k].device)).to(
+                          t.dtype))
 
 
 def gather_pool_lanes(pool, lane_ids):
-    """Sub-pool view of a paged pool at lanes `lane_ids` [w]: paged
-    block-pool leaves pass through whole (block tables route them, so they
-    need no lane axis) — the SAME tensors, so a step that writes the
-    sub-pool writes the pool. Per-lane leaves are not ported yet, so today
-    this gathers nothing and `lane_ids` goes unused: it keeps the place
-    where the ring/slot slice will select per-lane rows."""
-    for P in list(pool["units"]) + list(pool["tail"]):
-        if not _is_paged_leaf(P):
-            raise _lane_leaves_unsupported()
-    return {"units": list(pool["units"]), "tail": list(pool["tail"])}
+    """Sub-pool of a paged pool at lanes `lane_ids` [w]: paged block-pool
+    leaves pass through whole — the SAME tensors (block tables route them,
+    so they need no lane axis), so a step that writes the sub-pool writes
+    the pool; per-lane leaves (recurrent states) are gathered down to width
+    w, a COPY, to be written back with scatter_pool_lanes. Padding ids >=
+    n_lanes clamp to a real lane on the read — harmless, because the
+    scatter drops their rows."""
+    def take(P, axis):
+        if _is_paged_leaf(P):
+            return P
+        n = next(iter(P.values())).shape[axis]
+        idx = torch.clamp(lane_ids.long(), 0, n - 1)
+        return {k: t.index_select(axis, idx.to(t.device))
+                for k, t in P.items()}
+
+    return {"units": [take(P, 1) for P in pool["units"]],
+            "tail": [take(P, 0) for P in pool["tail"]]}
 
 
 def scatter_pool_lanes(pool, sub, lane_ids):
     """Write a width-w sub-pool (gather_pool_lanes layout) back into the
-    full pool. Paged leaves were updated in place through shared tensors,
-    so they are returned as they are: today this scatters nothing. Lane ids >= n_lanes mark padding rows;
-    with no per-lane leaf ported there is nothing of theirs to filter out
-    here (index_put_ has no drop mode: when per-lane leaves arrive, rows
-    with such ids must be removed before the scatter)."""
-    for P in list(pool["units"]) + list(pool["tail"]):
+    full pool, IN PLACE: per-lane rows land at `lane_ids`, rows with ids
+    >= n_lanes (padding) removed first; paged leaves were updated in place
+    through the shared tensors and are left as they are. Returns the
+    pool."""
+    for P, o in zip(pool["units"], sub["units"]):
         if not _is_paged_leaf(P):
-            raise _lane_leaves_unsupported()
-    return {"units": list(sub["units"]), "tail": list(sub["tail"])}
+            _put_lanes(P, o, lane_ids, 1)
+    for P, o in zip(pool["tail"], sub["tail"]):
+        if not _is_paged_leaf(P):
+            _put_lanes(P, o, lane_ids, 0)
+    return pool
 
 
 def make_compact_decode_step(cfg: ModelConfig,
@@ -269,7 +302,9 @@ def make_compact_decode_step(cfg: ModelConfig,
     """Paged decode at a COMPACTED width w <= n_lanes: run one batched
     decode at width w through the active lanes' (trimmed) block tables. A
     tick with 3 active lanes stops paying for the padded remainder of the
-    pool. Padding rows carry position -1 and an empty table: inert."""
+    pool. Padding rows carry position -1 and an empty table: inert (their
+    recurrent rows keep their state, and the scatter drops them). The
+    lanes' per-lane rows are gathered, stepped and written back."""
     settings = settings or M.ModelSettings()
 
     def decode_compact(params, tokens, positions, tables, lane_ids, pool,
@@ -290,9 +325,11 @@ def make_chunk_prefill_step(cfg: ModelConfig,
     """Chunked prefill: run tokens [w, C] at absolute positions [w, C]
     (-1 = padding) against the LIVE pool — paged attention layers append the
     chunk through `tables` to what earlier chunks wrote and attend over
-    history + chunk, which is exactly that slice of a whole-prompt prefill.
-    Returns each row's last-valid-position logits (meaningful for rows
-    whose chunk completes the prompt) and the pool, updated in place.
+    history + chunk, which is exactly that slice of a whole-prompt prefill;
+    recurrent blocks continue each lane's carried state (rows starting at
+    position 0 restart from a fresh one) and are written back. Returns each
+    row's last-valid-position logits (meaningful for rows whose chunk
+    completes the prompt) and the pool, updated in place.
 
     Only each row's last valid position goes through the final norm and the
     LM head: the values are those the reference package selects after
@@ -316,7 +353,7 @@ def make_chunk_prefill_step(cfg: ModelConfig,
 
 def pool_block_size(pool, default: int = 0) -> int:
     """The kv block size a paged pool was built with (from any paged leaf).
-    `default` covers pools with nothing to page."""
+    `default` covers pools with nothing to page (all-recurrent models)."""
     for P in list(pool["units"]) + list(pool["tail"]):
         if isinstance(P, dict) and "kb" in P:
             return int(P["pos"].shape[-1])

@@ -76,6 +76,11 @@ class PagedTorchExecutor:
     appended to the live pool `chunk` positions at a time, interleaved with
     decode ticks by the engine.
 
+    Recurrent blocks (xLSTM's mLSTM and sLSTM) keep each lane's state in
+    per-lane pool leaves, gathered and written back by every step; a model
+    with no attention layer pages nothing, and its block tables route
+    nothing (`has_recurrent`: the engine then refuses prefix sharing).
+
     The pool lives on `device` (default "cuda"; raises without a CUDA
     device) and is updated in place by every step. `params` must already be
     on that device.

@@ -43,7 +43,7 @@ def model_pair(arch="mistral-nemo-12b", seed=1, depth=None):
     if depth is not None:
         cj, ct = jdv(cj, depth), tdv(ct, depth)
     pj = jax_init_params(jax.random.PRNGKey(seed), cj)
-    pt = params_from_jax(tree_np(pj), ct.param_dtype, "cpu")
+    pt = params_from_jax(tree_np(pj), ct, "cpu")
     return cj, pj, ct, pt
 
 

@@ -33,6 +33,8 @@ def test_every_module_imports_without_jax_or_reference_package():
                  "repro_torch.serving.executor", "repro_torch.convert",
                  "repro_torch.core.predictor",
                  "repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.mlstm_scan",
+                 "repro_torch.models.recurrent",
                  "repro_torch.serving.quality",
                  "repro_torch.configs.mistral_nemo_12b"):
         assert want in names
@@ -67,14 +69,14 @@ def test_no_source_file_names_jax_or_the_reference_package():
 
 def test_build_module_imports_without_nvcc_and_raises_only_on_use():
     import torch
-    from repro_torch.kernels import (build, flash_attention, paged_decode,
-                                     paged_prefill)
+    from repro_torch.kernels import (build, flash_attention, mlstm_scan,
+                                     paged_decode, paged_prefill)
     assert set(build.SOURCES) == {paged_decode.SOURCE, paged_prefill.SOURCE,
-                                  flash_attention.SOURCE}
+                                  flash_attention.SOURCE, mlstm_scan.SOURCE}
     for f in build.SOURCES + build.HEADERS:
         assert os.path.exists(os.path.join(build.CSRC, f)), f
     assert paged_decode.launches == 0 and paged_prefill.launches == 0
-    assert flash_attention.launches == 0
+    assert flash_attention.launches == 0 and mlstm_scan.launches == 0
     if build.find_nvcc() is None:
         with pytest.raises(build.KernelCompileError, match="nvcc"):
             build.library(paged_decode.SOURCE)

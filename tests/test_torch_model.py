@@ -14,7 +14,7 @@ from repro_torch.models import ModelSettings, apply, init_params
 from repro_torch.models.attention import AttnSettings
 from repro_torch.runtime import serve_step as SS
 
-from _torch_parity import model_pair, t_np, to_np
+from _torch_parity import model_pair, t_np, to_np, tree_np
 
 ATOL = 5e-2     # f32 logits of a bf16 model: bf16 roundings through 2 layers
 
@@ -149,9 +149,9 @@ def test_init_params_layout_and_device_rule():
 
 
 def test_unported_paths_raise_by_name():
-    """What is not ported raises by name; the cache-free forward (which
-    raised before whole-prompt prefill was ported) runs and equals the
-    reference's."""
+    """What is not ported raises by name (RG-LRU, MoE, the per-lane rings
+    of the ring/slot slice); the cache-free forward (which raised before
+    whole-prompt prefill was ported) runs and equals the reference's."""
     from repro_torch.configs import get_config
     cj, pj, ct, pt = model_pair()
     toks = np.asarray([[5, 9, 2, 7]], np.int32)
@@ -161,8 +161,9 @@ def test_unported_paths_raise_by_name():
     assert cache is None
     _check_logits(lt.numpy(), np.asarray(lj))
     gen = torch.Generator(device="cpu").manual_seed(0)
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        init_params(gen, get_config("xlstm-1.3b").reduced(), device="cpu")
+    with pytest.raises(NotImplementedError, match="RG-LRU"):
+        init_params(gen, get_config("recurrentgemma-9b").reduced(),
+                    device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
         init_params(gen, get_config("mixtral-8x7b").reduced(), device="cpu")
     with pytest.raises(NotImplementedError, match="ring/slot"):
@@ -174,15 +175,17 @@ def test_convert_device_rule():
     """The hand-over functions default to CUDA like every entry point and
     take the CPU only when asked."""
     from repro_torch.convert import params_from_jax, pool_from_jax
-    tree = {"w": np.ones((2, 3), np.float32), "i": np.arange(3, dtype=np.int32)}
-    got = params_from_jax(tree, "bfloat16", device="cpu")
-    assert got["w"].dtype == torch.bfloat16 and got["i"].dtype == torch.int32
+    _, pj, ct, _ = model_pair(depth=2)
+    tree = tree_np(pj)
+    got = params_from_jax(tree, ct, device="cpu")
+    assert got["embed"]["table"].dtype == torch.bfloat16
     pool = pool_from_jax({"units": [{"kb": np.ones((2, 4, 1, 2), np.float32),
                                      "pos": np.full((2, 4), -1, np.int32)}],
                           "tail": []}, device="cpu")
     assert pool["units"][0]["kb"].dtype == torch.bfloat16
+    assert pool["units"][0]["pos"].dtype == torch.int32
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
-            params_from_jax(tree)
+            params_from_jax(tree, ct)
         with pytest.raises(RuntimeError, match="cuda"):
             pool_from_jax({"units": [], "tail": []})
