@@ -3,18 +3,26 @@
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phases 1,2    # build + kernel checks only
+    python3 chip_smoke.py --phases 1,8    # build + the training path only
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. device: the card's name and power limit, its properties beside the
-     constants the capacity model uses; build the four CUDA kernels from
-     src/repro_torch/kernels/csrc/, one nvcc each, all started together.
+     constants the capacity model uses; build the five CUDA kernel sources
+     from src/repro_torch/kernels/csrc/, one nvcc each, all started
+     together.
   2. each kernel's wrapper against its plain PyTorch version on the card, at
      serving shapes and at odd ones: bf16 / int8 / int4 / f32 pools for the
      paged kernels; f32 / bf16, causal / window / chunk, G = 1, 2, 4,
-     lengths no tile divides and padded rows for flash attention (lse too);
-     for the mLSTM scan the reference sweep (dk != dv too), with and
-     without a carried state, fresh rows, padded steps, padding-only rows,
-     f32 / bf16 and xlstm-1.3b's serving shape [32, 256, 1024].
+     lengths no tile divides and padded rows for flash attention (lse too;
+     head_dim 80 and h2o-danube-1.8b's training shape among them);
+     for the flash backward (dq, dk, dv) f32 / bf16, causal / window /
+     chunk, G = 1, 2, 4, head_dim 16 to 256 (80 among them), lengths no
+     tile divides, padded rows, rows that see nothing, h2o-danube-1.8b's
+     training shape [4, 2048, 32, 80], and an autograd round trip through
+     ops.flash_attention_trainable against autograd through the plain
+     forward; for the mLSTM scan the reference sweep (dk != dv too), with
+     and without a carried state, fresh rows, padded steps, padding-only
+     rows, f32 / bf16 and xlstm-1.3b's serving shape [32, 256, 1024].
   3. the main path at full width: mistral-nemo-12b, all 40 layers, random
      bf16 weights from a seed; the capacity model sizes the KV block pool;
      the engine serves a seeded trace of short and long prompts through
@@ -41,9 +49,24 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      greedy_generate, divergences judged by the rms logit difference; the
      trace at 8 layers with the kernel and with the plain scan, judged as
      in phase 4; per-block host times and the lane gather / scatter.
-  then: each kernel timed at the largest shape its path launched it at,
-  beside its plain version, its bound and (flash attention) the one
-  PyTorch call that computes the same function; one JSON line `kernels`.
+  8. the training path at full width and depth: h2o-danube-1.8b, all 24
+     layers, random bf16 weights from a seed, batches of [4, 2048] tokens
+     from the port's TokenPipeline through run_train_loop: 6 steps of
+     adamw_f32 without remat on the single schedule, then 2 steps each of
+     remat "full", remat "dots", 2 microbatches (the scan schedule) and
+     adafactor; loss and grad_norm finite, flash forward / backward
+     launches exactly 24 x steps x microbatches (the forward twice under
+     remat), nothing else launched; per plan
+     torch.cuda.max_memory_allocated() beside the
+     capacity model's resident and transient terms (printed, not
+     asserted); at 2 layers, one step's loss and gradients through the
+     kernels against those through the plain dense attention (loss
+     within 1e-4 of itself, each gradient leaf within 5e-2).
+  then: each kernel timed at the largest shape its path launched it at
+  (the flash forward and backward also at phase 8's training shape),
+  beside its plain version, its bound and (flash attention, forward and
+  backward) the one PyTorch call that computes the same function; one JSON
+  line `kernels`.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -70,21 +93,32 @@ if not torch.cuda.is_available():
 
 from repro_torch import hw as HW  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import DECODE, ShapeConfig, depth_variant  # noqa: E402
+from repro_torch.configs.base import (DECODE, TRAIN, BlockSpec,  # noqa: E402
+                                      ShapeConfig, depth_variant)
 from repro_torch.core import classifier as CL, predictor as PR  # noqa: E402
 from repro_torch.kernels import (build, flash_attention,  # noqa: E402
-                                 mlstm_scan, paged_decode, paged_prefill)
+                                 flash_attention_bwd, mlstm_scan,
+                                 paged_decode, paged_prefill)
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
+from repro_torch.launch import train as LT  # noqa: E402
 from repro_torch.models import ModelSettings, init_params  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import recurrent as R  # noqa: E402
+from repro_torch.optim import optimizers as OPT  # noqa: E402
+from repro_torch.runtime import fault as FT  # noqa: E402
 from repro_torch.runtime import serve_step as SS  # noqa: E402
+from repro_torch.runtime import train_step as TS  # noqa: E402
 from repro_torch.serving import (BlockAllocator, Engine, leak_check,  # noqa: E402
                                  synthetic_trace, trace_context)
 from repro_torch.serving import quality as Q  # noqa: E402
 from repro_torch.serving.executor import PagedTorchExecutor  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_paths  # noqa: E402
 
 DEV = torch.device("cuda:0")
 SEED = 0
+KERNEL_MODULES = (paged_decode, paged_prefill, flash_attention,
+                  flash_attention_bwd, mlstm_scan)
 
 # Tolerances of kernel vs plain version on the card. Both sides compute in
 # f32 from the same stored values (for a quantised pool the plain version is
@@ -128,6 +162,24 @@ GAP_BOUND = 0.1
 # that attends to wrong rows or positions leaves logits that agree only in
 # what the token embedding and the MLPs carry, tens of per cent apart.
 REL_BOUND = 0.1
+
+# Flash backward (dq, dk, dv) against its plain version: both recompute p
+# from the same stored inputs and lse in f32, in other orders; dk and dv sum
+# over up to sq x G (query, head) rows. f32 results: within RTOL_BWD of
+# (|value| + the tensor's largest |value|). bf16 results: each side rounds
+# its f32 result once to bf16, so one bf16 unit apart where the two straddle
+# a rounding boundary (RTOL_BF16 of the value), plus ATOL_BWD_BF16 of the
+# tensor's largest |value| for values near zero.
+RTOL_BWD = 1e-4
+ATOL_BWD_BF16 = 1e-3
+# The autograd round trip in bf16 differs by more than roundings of the
+# results: the kernel path takes D = rowsum(dO * O) from the output rounded
+# to bf16 (the flash algorithm, as the reference's), autograd through the
+# plain forward differentiates the f32 softmax. Each output element carries
+# up to 2^-9 of itself, summed over head_dim against dO: a few tenths of a
+# per cent of the largest gradient at head_dim 80, so 2 % of the largest
+# |value|.
+ATOL_AUTOGRAD_BF16 = 2e-2
 
 PEAK_BYTES_PER_S = HW.H100.hbm_bw            # 3.35e12
 PEAK_BF16_FLOPS = HW.H100.peak_flops_bf16    # 989e12
@@ -177,7 +229,7 @@ def phase_device():
         for line in build.build_log(name).splitlines():
             if "registers" in line or "error" in line.lower():
                 log(f"[1]   {name}: {line.strip()}")
-    for mod in (paged_decode, paged_prefill, flash_attention, mlstm_scan):
+    for mod in KERNEL_MODULES:
         build.library(mod.SOURCE)
     return smi
 
@@ -369,6 +421,92 @@ def flash_case(gen, name, *, b, s, K, G, hd, qdt=torch.bfloat16,
     return err
 
 
+def check_bwd(name, got, want, atol_bf16=ATOL_BWD_BF16):
+    """A flash-backward result against the plain version's, with the
+    tolerance of its dtype (RTOL_BWD; RTOL_BF16 and `atol_bf16`); returns
+    the largest absolute error."""
+    if not torch.isfinite(got.float()).all():
+        fail(f"{name}: kernel result not finite")
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    top = float(w.abs().max())
+    if got.dtype == torch.bfloat16:
+        bound = RTOL_BF16 * w.abs() + atol_bf16 * top
+    else:
+        bound = RTOL_BWD * (w.abs() + top)
+    over = diff - bound
+    if not float(over.max()) <= 0.0:
+        fail(f"{name}: max abs err {float(diff.max()):.3e} (largest |value| "
+             f"{top:.3e}) exceeds the bound by {float(over.max()):.3e}")
+    return float(diff.max())
+
+
+def flash_bwd_case(gen, name, *, b, s, K, G, hd, qdt=torch.bfloat16,
+                   window=None, chunk=None, lens=None, start=0, blind=0):
+    """Kernel 6 against its plain version: dq, dk, dv from the forward
+    kernel's out and lse and a random dO. Row i holds lens[i] positions
+    start.. and is padded with -1 to s; `blind` > 0 sets the first `blind`
+    keys of row 0 to position -1, so its first `blind` queries see nothing
+    (lse -1e30): their dq must be exactly 0."""
+    lens = lens or [s] * b
+    pos = np.full((b, s), -1, np.int32)
+    for i, n in enumerate(lens):
+        pos[i, :n] = start + np.arange(n)
+    qpos = torch.from_numpy(pos).to(DEV)
+    kp = pos.copy()
+    kp[0, :blind] = -1
+    kpos = torch.from_numpy(kp).to(DEV)
+    q = torch.randn((b, s, K * G, hd), generator=gen, device=DEV).to(qdt)
+    k = torch.randn((b, s, K, hd), generator=gen, device=DEV).to(qdt)
+    v = torch.randn((b, s, K, hd), generator=gen, device=DEV).to(qdt)
+    do = torch.randn((b, s, K * G, hd), generator=gen, device=DEV).to(qdt)
+    out, lse = flash_attention.flash_attention_fwd(
+        q, k, v, qpos, kpos, window=window, chunk=chunk, return_lse=True)
+    args = (q, k, v, out, lse, do, qpos, kpos)
+    got = flash_attention_bwd.flash_attention_bwd(*args, window=window,
+                                                  chunk=chunk)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd.flash_attention_bwd_plain(
+        *args, window=window, chunk=chunk)
+    errs = [check_bwd(f"{name} {n}", a, w)
+            for n, a, w in zip(("dq", "dk", "dv"), got, want)]
+    if blind:
+        if float(lse[0, :blind].max()) > -1e29:
+            fail(f"{name}: the blind rows saw something (lse "
+                 f"{float(lse[0, :blind].max())})")
+        if float(got[0][0, :blind].float().abs().max()) != 0.0:
+            fail(f"{name}: a row that sees nothing has a non-zero dq")
+    return errs
+
+
+def flash_autograd_case(gen, name, *, b, s, K, G, hd, qdt, window=None):
+    """One autograd round trip: gradients of sum(out * w) through
+    ops.flash_attention_trainable (forward and backward kernels) against
+    autograd through the plain forward flash_attention_plain."""
+    pos = torch.arange(s, dtype=torch.int32, device=DEV)[None].repeat(b, 1)
+    q = torch.randn((b, s, K, G, hd), generator=gen, device=DEV).to(qdt)
+    k = torch.randn((b, s, K, hd), generator=gen, device=DEV).to(qdt)
+    v = torch.randn((b, s, K, hd), generator=gen, device=DEV).to(qdt)
+    w = torch.randn((b, s, K, G, hd), generator=gen, device=DEV).to(qdt)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves)
+        return torch.autograd.grad((out.float() * w.float()).sum(), leaves)
+
+    nb = flash_attention_bwd.launches
+    got = grads(lambda q_, k_, v_: kops.flash_attention_trainable(
+        q_, k_, v_, pos, pos, window=window))
+    if flash_attention_bwd.launches != nb + 1:
+        fail(f"{name}: the autograd Function did not launch the backward "
+             "kernel")
+    want = grads(lambda q_, k_, v_: flash_attention.flash_attention_plain(
+        q_.reshape(b, s, K * G, hd), k_, v_, pos, pos,
+        window=window).reshape(b, s, K, G, hd))
+    return [check_bwd(f"{name} {n}", a, w_, ATOL_AUTOGRAD_BF16)
+            for n, a, w_ in zip(("dq", "dk", "dv"), got, want)]
+
+
 def check_rel(name, got, want):
     """|got - want| <= RTOL_ML * (|want| + the largest |want| of the same
     folded head) elementwise, for the mLSTM scan's f32 results; returns the
@@ -430,7 +568,8 @@ def mlstm_case(gen, name, *, bh, s, dk, dv, chunk, dt=torch.float32,
 def phase_kernels():
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
     errs = {"paged_decode": 0.0, "paged_prefill": 0.0,
-            "flash_attention": 0.0, "mlstm_scan": 0.0}
+            "flash_attention": 0.0, "flash_attention_train": 0.0,
+            "flash_attention_bwd": 0.0, "mlstm_scan": 0.0}
     n = 0
     S = dict(K=8, G=4, hd=128, bs=16)      # mistral-nemo-12b serving shapes
 
@@ -541,6 +680,61 @@ def phase_kernels():
     # the serving shapes: a whole-prompt prefill group, a greedy prefill
     f("serve w8 s256", b=8, s=256, **MN)
     f("greedy w1 s2048", b=1, s=2048, **MN)
+    DN = dict(K=8, G=4, hd=80)       # h2o-danube-1.8b's attention heads
+    # head_dim 80 at lengths no tile divides, then phase 8's training shape
+    # [4, 2048, 32, 80], 8 kv heads, causal under the 4096 window (its
+    # error is the flash_attention[train] row's)
+    for qdt in (torch.float32, torch.bfloat16):
+        t = "f32" if qdt == torch.float32 else "bf16"
+        f(f"s333 danube heads {t}", b=2, s=333, qdt=qdt, lens=[333, 200],
+          **DN)
+        f(f"s517 danube heads window100 {t}", b=1, s=517, qdt=qdt,
+          window=100, **DN)
+    errs["flash_attention_train"] = flash_case(
+        gen, "flash train [4, 2048, 32, 80] window4096", b=4, s=2048,
+        window=4096, **DN)
+    n += 1
+
+    bwd_errs = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+
+    def fb(name, fn=flash_bwd_case, **kw):
+        nonlocal n
+        for key, e in zip(("dq", "dk", "dv"), fn(gen, "flash bwd " + name,
+                                                  **kw)):
+            bwd_errs[key] = max(bwd_errs[key], e)
+        n += 1
+
+    # the reference kernel tests' sweep (causal, window 48, chunk 64; G = 2,
+    # 4, 1), then head_dim 80 and 128, lengths no tile divides, rows padded
+    # with -1, positions off the indices, rows that see nothing
+    for qdt in (torch.float32, torch.bfloat16):
+        t = "f32" if qdt == torch.float32 else "bf16"
+        fb(f"s128 K2 G2 hd32 {t}", b=2, s=128, K=2, G=2, hd=32, qdt=qdt)
+        fb(f"s128 K1 G4 hd16 window48 {t}", b=2, s=128, K=1, G=4, hd=16,
+           qdt=qdt, window=48)
+        fb(f"s256 K2 G1 hd64 chunk64 {t}", b=2, s=256, K=2, G=1, hd=64,
+           qdt=qdt, chunk=64)
+        fb(f"s200 danube heads {t}", b=2, s=200, qdt=qdt, **DN)
+        fb(f"s333 danube heads window100 {t}", b=1, s=333, qdt=qdt,
+           window=100, **DN)
+        fb(f"s300 K8 G4 hd128 ragged {t}", b=3, s=300, K=8, G=4, hd=128,
+           lens=[300, 123, 7], qdt=qdt)
+        fb(f"s129 K2 G2 hd80 offset chunk64 {t}", b=2, s=129, K=2, G=2,
+           hd=80, start=1000, lens=[129, 64], chunk=64, qdt=qdt)
+        fb(f"s100 danube heads blind rows {t}", b=2, s=100, blind=37,
+           lens=[100, 60], qdt=qdt, **DN)
+        fb(f"s97 K4 G1 hd64 window16 blind rows {t}", b=1, s=97, K=4, G=1,
+           hd=64, window=16, blind=20, qdt=qdt)
+    fb("hd256 G2 f32", b=2, s=100, K=2, G=2, hd=256, qdt=torch.float32)
+    fb("G12 hd192 bf16", b=1, s=90, K=2, G=12, hd=192)
+    # the training shape of phase 8: [4, 2048, 32, 80], 8 kv heads, causal
+    # under the 4096 window
+    fb("train [4, 2048, 32, 80] window4096", b=4, s=2048, window=4096, **DN)
+    fb("autograd f32 window128", fn=flash_autograd_case, b=2, s=300,
+       qdt=torch.float32, window=128, **DN)
+    fb("autograd bf16", fn=flash_autograd_case, b=1, s=512,
+       qdt=torch.bfloat16, **DN)
+    errs["flash_attention_bwd"] = max(bwd_errs.values())
 
     def ml(name, **kw):
         nonlocal n
@@ -581,13 +775,19 @@ def phase_kernels():
        pad_tail=55)
     log(f"[2] {n} kernel-vs-plain cases agree on the card: max abs err "
         f"decode {errs['paged_decode']:.3e}, prefill "
-        f"{errs['paged_prefill']:.3e}, flash {errs['flash_attention']:.3e}, "
-        f"mlstm out {errs['mlstm_scan']:.3e} "
+        f"{errs['paged_prefill']:.3e}, flash {errs['flash_attention']:.3e} "
+        f"(training shape {errs['flash_attention_train']:.3e}), "
+        f"mlstm out {errs['mlstm_scan']:.3e}, flash backward dq "
+        f"{bwd_errs['dq']:.3e} dk {bwd_errs['dk']:.3e} dv "
+        f"{bwd_errs['dv']:.3e} "
         f"(tolerances: f32 {TOL_F32:.0e}, bf16 "
         f"{TOL_BF16:.0e} + {RTOL_BF16:.1e} * |value|, mass {TOL_MASS:.0e}, "
         f"lse {TOL_LSE:.0e}, mlstm f32 {RTOL_ML:.0e} x (|value| + the "
-        f"head's largest |value|); pool codes, payload and "
-        f"positions exact, scales <= 1 ULP)")
+        f"head's largest |value|), flash backward f32 {RTOL_BWD:.0e} x "
+        f"(|value| + the tensor's largest |value|), bf16 {RTOL_BF16:.1e} * "
+        f"|value| + {ATOL_BWD_BF16:.0e} x the tensor's largest |value| "
+        f"({ATOL_AUTOGRAD_BF16:.0e} for the bf16 autograd round trip); "
+        f"pool codes, payload and positions exact, scales <= 1 ULP)")
     return errs
 
 
@@ -1061,7 +1261,7 @@ def phase_xlstm(phases):
     t0 = time.time()
     params = init_params(gen, cfg, device=DEV)
     torch.cuda.synchronize()
-    leaves = list(_leaves(params))
+    leaves = list(tree_leaves(params))
     w_bytes = sum(t.numel() * t.element_size() for t in leaves)
     f32 = sum(t.numel() * 4 for t in leaves if t.dtype == torch.float32)
     log(f"[7] {cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} layers ({nm} "
@@ -1083,7 +1283,7 @@ def phase_xlstm(phases):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_alloc = torch.cuda.memory_allocated()
-    for mod in (paged_decode, paged_prefill, flash_attention, mlstm_scan):
+    for mod in KERNEL_MODULES:
         mod.launches = 0
     ex, rep, dt = serve(cfg, params, trace, context, plan["pool_blocks"],
                         "none", record=True, keep_logits=True,
@@ -1223,6 +1423,189 @@ def layer_times(cfg, params, w):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: training h2o-danube-1.8b at full width and depth
+# ---------------------------------------------------------------------------
+
+TR_ARCH = "h2o-danube-1.8b"
+TR_SEED = SEED + 8
+TR_SEQ, TR_BATCH = 2048, 4
+TR_LR = 1e-4
+# (optimizer, remat, microbatches, steps): the main run first, then one
+# further plan per memory knob
+TR_PLANS = (("adamw_f32", "none", 1, 6), ("adamw_f32", "full", 1, 2),
+            ("adamw_f32", "dots", 1, 2), ("adamw_f32", "none", 2, 2),
+            ("adafactor", "none", 1, 2))
+# The 2-layer check: one step's gradients through the flash kernels against
+# those through the plain dense attention (AttnSettings(backend="naive")),
+# from the same bf16 parameters and batch. Each path rounds its attention
+# output and its dq / dk / dv to bf16 (2^-8 of the value each) and the
+# backward carries the roundings through two layers and the bf16 residual
+# stream: per leaf, ||g_kernel - g_plain|| / ||g_plain|| near 1e-2 is
+# rounding; a kernel that drops or misplaces pairs moves whole rows of the
+# gradient, far above 5e-2.
+REL_GRAD_BOUND = 0.05
+# ... and its loss: a mean over 8192 tokens of f32 log-softmax terms whose
+# logits differ by the forward's bf16 roundings alone; they read 1.6e-6 of
+# the loss apart (10.066322 / 10.066306, NVIDIA H100 80GB HBM3, 700.00 W).
+# A kernel that attends to wrong rows moves the loss by far more.
+REL_LOSS_BOUND = 1e-4
+
+
+def _zero_launches():
+    for mod in KERNEL_MODULES:
+        mod.launches = 0
+
+
+def _bytes_of(tree):
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def train_plan(cfg, params, pipe, kind, remat, micro, steps):
+    """`steps` steps of run_train_loop under one memory plan, a fresh
+    optimizer state; returns what the log and the checks need."""
+    tcfg = TS.TrainStepConfig(
+        remat=remat, microbatches=micro,
+        optimizer=OPT.OptimizerConfig(kind=kind, lr=TR_LR),
+        warmup_steps=2, total_steps=max(steps, 3))
+    step_fn = TS.make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    st = OPT.init_state(tcfg.optimizer, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    _zero_launches()
+    t0 = time.time()
+
+    def on_metrics(i, m):
+        times.append(time.time())
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+            fail(f"training plan {kind}/{remat}/{micro}: step {i} loss "
+                 f"{m['loss']} grad_norm {m['grad_norm']}")
+
+    _, _, done, hist = FT.run_train_loop(
+        train_step=step_fn, params=params, opt_state=st, pipeline=pipe,
+        n_steps=steps, on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {m.__name__.rsplit(".", 1)[-1]: m.launches
+                for m in KERNEL_MODULES}
+    peak = torch.cuda.max_memory_allocated()
+    opt_bytes = _bytes_of(st)
+    del st
+    if done != steps or len(hist) != steps:
+        fail(f"training plan {kind}/{remat}/{micro}: {done} of {steps} "
+             "steps")
+    n = cfg.n_layers * steps
+    want_f = n * micro * (2 if remat in ("full", "dots") else 1)
+    want_b = n * micro
+    if (launches["flash_attention"] != want_f
+            or launches["flash_attention_bwd"] != want_b
+            or any(launches[k] for k in ("paged_decode", "paged_prefill",
+                                         "mlstm_scan"))):
+        fail(f"training plan {kind}/{remat}/{micro}: launches {launches}, "
+             f"want flash forward {want_f} (= {cfg.n_layers} x {steps} x "
+             f"{micro}{' x 2, recomputed' if want_f > want_b else ''}), "
+             f"backward {want_b}, nothing else")
+    shape = ShapeConfig("train", TRAIN, TR_SEQ, TR_BATCH)
+    res, tra = LT.predicted_bytes(cfg, shape, PR.MemoryPlan(
+        remat=remat, microbatches=micro, optimizer=kind))
+    step_s = [b - a for a, b in zip([t0] + times[:-1], times)]
+    return {"plan": f"{kind}/remat={remat}/microbatches={micro}",
+            "steps": steps, "loss": [h["loss"] for h in hist],
+            "grad_norm": [h["grad_norm"] for h in hist],
+            "step_s": step_s, "wall": wall,
+            "fwd": launches["flash_attention"],
+            "bwd": launches["flash_attention_bwd"],
+            "peak": peak, "resident": res, "transient": tra,
+            "opt_bytes": opt_bytes}
+
+
+def grad_check_2layers(cfg, params, batch):
+    """Phase 8's kernel-vs-plain check at 2 layers and full width: loss and
+    per-leaf relative gradient difference of one step."""
+    cfg2 = depth_variant(cfg, 2)
+    p2 = dict(params)
+    p2["units"] = [{name: {k: v[:2] for k, v in sub.items()}
+                    for name, sub in unit.items()} for unit in params["units"]]
+    out = {}
+    for backend in ("kernel", "naive"):
+        tcfg = TS.TrainStepConfig(settings=ModelSettings(
+            attn=A.AttnSettings(backend=backend)))
+        (_, met), g = TS.value_and_grad(TS.make_loss_fn(cfg2, tcfg))(p2,
+                                                                     batch)
+        out[backend] = (float(met["loss"]), g)
+        torch.cuda.synchronize()
+    (lk, gk), (ln, gn) = out["kernel"], out["naive"]
+    worst, where = 0.0, None
+    for (path, a), (_, b) in zip(tree_paths(gk), tree_paths(gn)):
+        if not torch.isfinite(a.float()).all():
+            fail(f"2-layer check: kernel gradient {path} not finite")
+        den = float(b.float().norm())
+        rel = float((a.float() - b.float()).norm()) / max(den, 1e-30)
+        if rel > worst:
+            worst, where = rel, "/".join(map(str, path))
+    return lk, ln, worst, where
+
+
+def phase_train():
+    """Phase 8. Returns what the `kernels` line needs of it."""
+    cfg = get_config(TR_ARCH)
+    gen = torch.Generator(device=DEV).manual_seed(TR_SEED)
+    t0 = time.time()
+    params = init_params(gen, cfg, device=DEV)
+    torch.cuda.synchronize()
+    w_bytes = _bytes_of(params)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[8] {cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} layers, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads x "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"window {cfg.unit[0].window}: {n_params:,} parameters, "
+        f"{w_bytes / 1e9:.3f} GB of bf16 weights made on the card from seed "
+        f"{TR_SEED} in {time.time() - t0:.1f}s")
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TR_SEQ, global_batch=TR_BATCH,
+                                    seed=TR_SEED))
+    runs = []
+    for kind, remat, micro, steps in TR_PLANS:
+        r = train_plan(cfg, params, pipe, kind, remat, micro, steps)
+        runs.append(r)
+        pred = r["resident"] + r["transient"]
+        log(f"[8] plan {r['plan']}: {steps} steps of [{TR_BATCH}, {TR_SEQ}] "
+            f"tokens in {r['wall']:.2f}s (per step "
+            f"{[round(x, 3) for x in r['step_s']]} s); loss "
+            f"{[round(x, 4) for x in r['loss']]}; grad_norm "
+            f"{[round(x, 4) for x in r['grad_norm']]}; flash launches "
+            f"forward {r['fwd']}, backward {r['bwd']}")
+        log(f"[8] WSMC plan {r['plan']}: predicted resident "
+            f"{r['resident'] / 1e9:.3f} GB + transient "
+            f"{r['transient'] / 1e9:.3f} GB = {pred / 1e9:.3f} GB; "
+            f"torch.cuda.max_memory_allocated() {r['peak'] / 1e9:.3f} GB "
+            f"(weights {w_bytes / 1e9:.3f} GB, optimizer state "
+            f"{r['opt_bytes'] / 1e9:.3f} GB); measured / predicted = "
+            f"{r['peak'] / pred:.4f}")
+    torch.cuda.empty_cache()
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in pipe.batch_at(0).items()}
+    t0 = time.time()
+    lk, ln, worst, where = grad_check_2layers(cfg, params, batch)
+    log(f"[8] 2 layers at full width, one step through the flash kernels "
+        f"and through the plain dense attention ({time.time() - t0:.2f}s): "
+        f"loss {lk:.6f} / {ln:.6f} (relative difference "
+        f"{abs(lk - ln) / abs(ln):.4e}, bound {REL_LOSS_BOUND}); largest "
+        f"per-leaf relative gradient difference {worst:.4e} at {where} "
+        f"(bound {REL_GRAD_BOUND})")
+    if not (np.isfinite(lk) and abs(lk - ln) <= REL_LOSS_BOUND * abs(ln)):
+        fail(f"2-layer check: loss {lk} through the kernels, {ln} plain")
+    if worst > REL_GRAD_BOUND:
+        fail("2-layer check: kernel gradients apart from the plain "
+             "attention's by more than bf16 roundings")
+    main_run = runs[0]
+    return {"fwd": main_run["fwd"], "bwd": main_run["bwd"],
+            "steps": main_run["steps"], "cfg": cfg}
+
+
+# ---------------------------------------------------------------------------
 # Kernel timings at the main path's shapes, and the `kernels` line
 # ---------------------------------------------------------------------------
 
@@ -1300,7 +1683,7 @@ def time_prefill(cfg, gen, w, mb, codec):
 
 
 def time_flash(cfg, gen, w, s):
-    """Flash attention at [w, s] causal, mistral-nemo's heads, bf16: the
+    """Flash attention at [w, s] causal, cfg's heads, bf16: the
     kernel, its plain version and scaled_dot_product_attention (the one
     PyTorch call that computes the same function; timed here, never called
     by the port), and the bytes and operations the function needs."""
@@ -1329,6 +1712,96 @@ def time_flash(cfg, gen, w, s):
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 2 * pos.numel() * 4
     flops = 4.0 * hd * H * w * s * (s + 1) / 2      # causal pairs
     return ms, plain, lib, dev, nbytes, flops
+
+
+def visible_pairs(qpos, kpos, window=None, chunk=None):
+    """(query, key) pairs the position mask lets through, summed over the
+    batch rows: the work the attention of these inputs needs."""
+    return int(A._mask(qpos, kpos, BlockSpec(window=window,
+                                             chunk=chunk)).sum())
+
+
+def time_flash_bwd(cfg, gen, w, s):
+    """The flash backward at [w, s] causal under cfg's window, its heads,
+    bf16: the kernels (D computed first, as the wrapper does), the plain
+    version, and the backward of scaled_dot_product_attention(is_causal,
+    enable_gqa) (the one PyTorch call that computes the same function;
+    timed here, never called by the port); the bytes and operations the
+    function needs for these inputs."""
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    window = cfg.unit[0].window
+    bf = torch.bfloat16
+    q = torch.randn((w, s, H, hd), generator=gen, device=DEV).to(bf)
+    k = torch.randn((w, s, K, hd), generator=gen, device=DEV).to(bf)
+    v = torch.randn((w, s, K, hd), generator=gen, device=DEV).to(bf)
+    do = torch.randn((w, s, H, hd), generator=gen, device=DEV).to(bf)
+    pos = torch.arange(s, dtype=torch.int32, device=DEV)[None].repeat(w, 1)
+    out, lse = flash_attention.flash_attention_fwd(
+        q, k, v, pos, pos, window=window, return_lse=True)
+    args = (q, k, v, out, lse, do, pos, pos)
+    ms = time_ms(lambda: flash_attention_bwd.flash_attention_bwd(
+        *args, window=window), 5)
+    plain = time_ms(lambda: flash_attention_bwd.flash_attention_bwd_plain(
+        *args, window=window), 2)
+    got = flash_attention_bwd.flash_attention_bwd(*args, window=window)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                              retain_graph=True), 5)
+    lib_g = torch.autograd.grad(lib_out, (qt, kt, vt), dot)
+    dev = max(float((a.transpose(1, 2).float() - b.float()).abs().max())
+              for a, b in zip(lib_g, got))
+    # read: q, k, v, out, dO (bf16), lse (f32), both position vectors;
+    # written: dq, dk, dv
+    nbytes = (2 * (3 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
+              + 2 * 4 * pos.numel() + 2 * (q.numel() + 2 * k.numel()))
+    pairs = visible_pairs(pos, pos, window=window)
+    # five products of 2 * hd operations per visible pair and query head:
+    # s = q k^T, dO v^T, dv = p^T dO, dq = ds k, dk = ds^T q
+    flops = 10.0 * hd * H * pairs
+    return ms, plain, lib, dev, nbytes, flops, pairs
+
+
+def train_rows(tr, errs):
+    """The `kernels` line's rows of the training path: the flash forward
+    and backward at phase 8's shape [4, 2048, 32, 80]."""
+    cfg = tr["cfg"]
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    shape = {"batch": TR_BATCH, "positions": TR_SEQ, "heads": cfg.n_heads,
+             "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+             "window": cfg.unit[0].window}
+    rows = []
+    ms, plain, lib, dev, nbytes, flops = time_flash(cfg, gen, TR_BATCH,
+                                                    TR_SEQ)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    rows.append({
+        "name": "flash_attention[train]", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:111",
+        "launches": tr["fwd"], "max_abs_err": errs["flash_attention_train"],
+        "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib, "library_max_abs_dev": dev, "shape": shape,
+        "bytes": nbytes, "operations": flops})
+    ms, plain, lib, dev, nbytes, flops, pairs = time_flash_bwd(
+        cfg, gen, TR_BATCH, TR_SEQ)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention_bwd.py:170",
+        "launches": tr["bwd"], "max_abs_err": errs["flash_attention_bwd"],
+        "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib, "library_max_abs_dev": dev, "shape": shape,
+        "bytes": nbytes, "operations": flops, "visible_pairs": pairs,
+        "launches_per_step": tr["bwd"] // tr["steps"]})
+    return rows
 
 
 def kernel_rows(cfg, counts, shapes, errs, greedy=None):
@@ -1443,7 +1916,7 @@ def run_mistral(phases, errs):
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     t0 = time.time()
     params = init_params(gen, cfg, device=DEV)
-    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     torch.cuda.synchronize()
     log(f"[3] {cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} layers, "
         f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads x "
@@ -1478,12 +1951,12 @@ def run_mistral(phases, errs):
     return kernel_rows(cfg, counts, shapes, errs, greedy)
 
 
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8}
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (1 always runs)")
     args = ap.parse_args()
     phases = {int(x) for x in args.phases.split(",")}
@@ -1492,7 +1965,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     errs = {"paged_decode": None, "paged_prefill": None,
-            "flash_attention": None, "mlstm_scan": None}
+            "flash_attention": None, "flash_attention_train": None,
+            "flash_attention_bwd": None, "mlstm_scan": None}
     if 2 in phases:
         t0 = time.time()
         errs = phase_kernels()
@@ -1506,6 +1980,12 @@ def main():
         xl = phase_xlstm(phases)
         log(f"[7] phase 7 {time.time() - t0:.2f}s")
         rows.append(mlstm_row(xl, errs["mlstm_scan"]))
+        torch.cuda.empty_cache()
+    if 8 in phases:
+        t0 = time.time()
+        tr = phase_train()
+        log(f"[8] phase 8 {time.time() - t0:.2f}s")
+        rows += train_rows(tr, errs)
     for r in rows:
         lib = ("" if r["library_ms"] is None else
                f", library {r['library_ms']:.4f} ms")
@@ -1522,17 +2002,6 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 if __name__ == "__main__":

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import init_params, require_device
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _to_tensor(a, dtype, device):
@@ -20,14 +21,6 @@ def _to_tensor(a, dtype, device):
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
-
-
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
 
 
 def params_from_jax(numpy_tree, cfg, device="cuda"):
@@ -59,12 +52,38 @@ def _zip_map(tree, template, fn):
     if isinstance(tree, dict):
         if sorted(tree) != sorted(template):
             raise ValueError(f"keys {sorted(tree)} != {sorted(template)}")
-        return {k: _zip_map(v, template[k], fn) for k, v in tree.items()}
+        return {k: _zip_map(tree[k], t, fn) for k, t in template.items()}
     if isinstance(tree, (list, tuple)):
         if len(tree) != len(template):
             raise ValueError(f"{len(tree)} entries, template {len(template)}")
         return [_zip_map(v, t, fn) for v, t in zip(tree, template)]
     return fn(tree, template)
+
+
+def opt_state_from_jax(numpy_tree, params, ocfg):
+    """The reference package's optimizer state for `ocfg` as a tree of
+    numpy arrays ({"m", "v", "count"} for AdamW, {"f", "count"} for
+    Adafactor; bf16 leaves upcast to float32) -> this package's state for
+    `params`, on their device. Each leaf takes the dtype this package's
+    `optim.optimizers.init_state` gives it (a template built on the meta
+    device: AdamW moments in the optimizer's accumulator dtype, Adafactor
+    statistics in f32, "count" int32). A leaf whose shape differs from the
+    template's raises ValueError."""
+    from repro_torch.optim import optimizers as opt
+    device = tree_leaves(params)[0].device
+    meta = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), params)
+    template = opt.init_state(ocfg, meta)
+
+    def conv(a, t):
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"leaf of shape {a.shape}, template "
+                             f"{tuple(t.shape)}")
+        return torch.from_numpy(np.array(a)).to(device=device,
+                                                dtype=t.dtype)
+
+    return _zip_map(numpy_tree, template, conv)
 
 
 # payload leaves cast to `fp_dtype` (pool "kb"/"vb", ring "k"/"v"), and
@@ -113,4 +132,4 @@ def to_numpy(tree):
     def conv(t):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-    return _map(tree, conv)
+    return tree_map(conv, tree)

@@ -4,7 +4,8 @@ version.
 Replaces the TPU kernel kernels/flash_attention.py · flash_attention_fwd of
 the reference package: GQA attention of a whole sequence over itself under
 the causal / window / chunk position mask, the attention of whole-prompt
-prefill. On this card the function is bound by operations for prompts above
+prefill and of the training forward (with the row log-sum-exp the backward
+kernel reads). On this card the function is bound by operations for prompts above
 a few hundred positions and by bytes for short ones; the kernel keeps the
 online-softmax state on chip, reads each K/V tile once for the G query heads
 that share it, and skips tiles from the positions themselves
@@ -46,21 +47,29 @@ def _bound():
     return _fn
 
 
+def compute_dtype(t) -> torch.dtype:
+    """The plain versions' arithmetic type: f32, or f64 for f64 inputs (so
+    that torch.autograd.gradcheck can run through them)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def flash_attention_plain(q, k, v, qpos, kpos, *,
                           window: Optional[int] = None,
                           chunk: Optional[int] = None,
                           return_lse: bool = False):
-    """The plain PyTorch version: dense masked softmax in f32. q [b,sq,H,hd];
-    k/v [b,sk,K,hd]; qpos [b,sq], kpos [b,sk] -> out [b,sq,H,hd] in q's
-    dtype (+ lse [b,sq,H] f32). Masked scores are -1e30 and their weight 0,
-    so a row that sees nothing gives 0, as the kernel does."""
+    """The plain PyTorch version: dense masked softmax in f32 (f64 for f64
+    inputs). q [b,sq,H,hd]; k/v [b,sk,K,hd]; qpos [b,sq], kpos [b,sk] ->
+    out [b,sq,H,hd] in q's dtype (+ lse [b,sq,H] in the arithmetic type).
+    Masked scores are -1e30 and their weight 0, so a row that sees nothing
+    gives 0, as the kernel does."""
     from repro_torch.configs.base import BlockSpec
     from repro_torch.models.attention import _mask
+    ct = compute_dtype(q)
     b, sq, H, hd = q.shape
     K = k.shape[2]
     G = H // K
-    qf = q.float().reshape(b, sq, K, G, hd)
-    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.float()) * float(
+    qf = q.to(ct).reshape(b, sq, K, G, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.to(ct)) * float(
         1.0 / np.sqrt(hd))
     mask = _mask(qpos, kpos, BlockSpec(window=window, chunk=chunk))
     mask = mask[:, None, None]                          # [b, 1, 1, sq, sk]
@@ -68,7 +77,7 @@ def flash_attention_plain(q, k, v, qpos, kpos, *,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
     l = torch.clamp(p.sum(dim=-1), min=1e-30)           # [b, K, G, sq]
-    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(ct))
     o = o / l.permute(0, 3, 1, 2)[..., None]
     out = o.reshape(b, sq, H, hd).to(q.dtype)
     if not return_lse:

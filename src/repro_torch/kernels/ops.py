@@ -18,6 +18,9 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention import (  # noqa: F401
     flash_attention_fwd, flash_attention_plain,
 )
+from repro_torch.kernels.flash_attention_bwd import (  # noqa: F401
+    flash_attention_bwd, flash_attention_bwd_plain,
+)
 from repro_torch.kernels.mlstm_scan import (  # noqa: F401
     NEG_INF, mlstm_scan_fwd, mlstm_scan_plain,
 )
@@ -37,6 +40,44 @@ def flash_attention(q, k, v, qpos, kpos, *, window: Optional[int] = None,
     b, s, K, G, hd = q.shape
     out = flash_attention_fwd(q.reshape(b, s, K * G, hd), k, v, qpos, kpos,
                               window=window, chunk=chunk)
+    return out.reshape(b, s, K, G, hd)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward: the forward kernel with lse, the
+    dQ / dK-dV kernels for the gradient (each wrapper's plain version for
+    CPU tensors; never the plain version for a CUDA tensor). q [b,s,H,hd];
+    k/v [b,s,K,hd]."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kpos, window, chunk):
+        out, lse = flash_attention_fwd(q, k, v, qpos, kpos, window=window,
+                                       chunk=chunk, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, qpos, kpos)
+        ctx.window, ctx.chunk = window, chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, qpos, kpos = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.to(q.dtype),
+                                         qpos, kpos, window=ctx.window,
+                                         chunk=ctx.chunk)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_trainable(q, k, v, qpos, kpos, *,
+                              window: Optional[int] = None,
+                              chunk: Optional[int] = None):
+    """Differentiable flash attention (forward kernel + dQ / dK-dV kernels),
+    the counterpart of the reference's ops.flash_attention_trainable.
+    q [b,s,K,G,hd]; k/v [b,s,K,hd]; qpos/kpos [b,s] -> [b,s,K,G,hd]. The
+    gradients are dq [b,s,K,G,hd] and dk/dv [b,s,K,hd] in the inputs' dtype
+    (GQA taken natively: no repeat of K/V to the query heads), none for the
+    positions."""
+    b, s, K, G, hd = q.shape
+    out = _FlashAttention.apply(q.reshape(b, s, K * G, hd), k, v, qpos, kpos,
+                                window, chunk)
     return out.reshape(b, s, K, G, hd)
 
 

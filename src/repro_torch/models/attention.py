@@ -110,11 +110,17 @@ def _naive(q, k, v, qpos, kpos, blk: BlockSpec):
 def _seq_attention(q, k, v, qpos, kpos, blk: BlockSpec,
                    settings: AttnSettings):
     """q [b,s,K,G,hd], k/v [b,s,K,hd], qpos/kpos [b,s] -> [b,s,K,G,hd]:
-    the flash-attention kernel (backend "kernel") or dense softmax."""
+    the flash-attention kernel (backend "kernel") or dense softmax. When
+    autograd records (grad mode on and q, k or v requiring a gradient) the
+    kernel goes through flash_attention_trainable, whose backward is the
+    flash-backward kernel; otherwise through the forward-only call. The
+    dense path is plain autograd."""
     if settings.backend == "kernel":
         from repro_torch.kernels import ops as kops
-        return kops.flash_attention(q, k, v, qpos, kpos, window=blk.window,
-                                    chunk=blk.chunk)
+        records = torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad)
+        fn = kops.flash_attention_trainable if records else kops.flash_attention
+        return fn(q, k, v, qpos, kpos, window=blk.window, chunk=blk.chunk)
     return _naive(q, k, v, qpos, kpos, blk)
 
 

@@ -227,3 +227,10 @@ def lm_head(params, cfg, x: torch.Tensor) -> torch.Tensor:
         c = cfg.logits_softcap
         logits = torch.tanh(logits / c) * c
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean token NLL. logits [b, s, V] f32, targets [b, s] int."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)

@@ -8,15 +8,16 @@ layer a view `leaf[r]` of the stacked tensors; caches are updated in place
 through those views.
 
 Ported: attention mixers with a dense MLP, and xLSTM's mLSTM and sLSTM
-mixers; the sequence forward without a cache, the prefill that builds ring
-caches and recurrent states (`build_cache`) or writes a paged pool, and
-decode and chunk-append forwards against a cache. RG-LRU and MoE raise
-NotImplementedError naming what lifts them.
+mixers; the sequence forward without a cache (differentiable: the training
+path, with an optional remat wrapper around each unit repeat), the prefill
+that builds ring caches and recurrent states (`build_cache`) or writes a
+paged pool, and decode and chunk-append forwards against a cache. RG-LRU
+and MoE raise NotImplementedError naming what lifts them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -238,12 +239,16 @@ def _tree_index(tree, r: int):
 # Forward
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
+def _merge_aux(acc: Dict[str, Any], aux: Dict[str, Any]):
+    for k, v in aux.items():
+        acc[k] = acc[k] + v if k in acc else v
+
+
 def apply(params, cfg: ModelConfig, tokens, *, positions=None,
           cache=None, decode: bool = False,
           settings: ModelSettings = ModelSettings(), context: int = 0,
           logits_last_only: bool = False, block_tables=None,
-          head_rows=None):
+          head_rows=None, unit_wrapper: Optional[Callable] = None):
     """Forward pass.
 
     tokens [b, s] (s=1 for decode); positions [b] for decode, [b, s]
@@ -256,7 +261,21 @@ def apply(params, cfg: ModelConfig, tokens, *, positions=None,
     returns a new tree). With settings.build_cache (prefill) and no cache,
     the returned cache is the ring tree the prompt fills; with a paged pool
     it is that pool, the prompt's K/V written layer by layer. Without
-    either, the cache returned is None.
+    either, the cache returned is None. `aux` holds "lb_loss" and "z_loss"
+    (zeros: no MoE block is ported) and, on paged decode with
+    settings.attn.track_mass, "attn_mass".
+
+    Grad mode follows the caller's, so a loss over the cache-free sequence
+    path's logits can be differentiated (the training path). The serving
+    entry points (runtime.serve_step, serving.executor, serving.quality)
+    call this under torch.no_grad(): their in-place writes into caches and
+    pools must not be recorded.
+
+    `unit_wrapper` (runtime.train_step.remat_wrapper) wraps each repeat of
+    the unit pattern on the cache-free path: unit_body(x, unit_params) ->
+    (x, aux), unit_params one tree per unit position, the leaves `leaf[r]`
+    of the stacked tree (a stacked leaf may also be a list of per-repeat
+    tensors).
 
     `head_rows` [b] (sequence path only) sends just position head_rows[i]
     of row i through the final norm and the LM head: logits [b, 1, V]. Both
@@ -276,7 +295,8 @@ def apply(params, cfg: ModelConfig, tokens, *, positions=None,
                            device=x.device)[None].expand(b, s)
     ctx = context or s
 
-    aux_acc: Dict[str, Any] = {}
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_acc: Dict[str, Any] = {"lb_loss": zero, "z_loss": zero}
     have_cache = cache is not None
     building = settings.build_cache and not decode and not have_cache
     if building:
@@ -291,15 +311,28 @@ def apply(params, cfg: ModelConfig, tokens, *, positions=None,
         if building:                 # the ring this layer's prompt filled
             for k, v in nc.items():
                 c[k].copy_(v)
-        for k, v in aux.items():
-            aux_acc[k] = aux_acc[k] + v if k in aux_acc else v
+        _merge_aux(aux_acc, aux)
         return x
 
     with_cache = have_cache or building
-    for r in range(cfg.repeats):
-        for i, blk in enumerate(cfg.unit):
-            c = _tree_index(cache["units"][i], r) if with_cache else None
-            x = run_block(_tree_index(params["units"][i], r), blk, x, c)
+    if with_cache:
+        for r in range(cfg.repeats):
+            for i, blk in enumerate(cfg.unit):
+                c = _tree_index(cache["units"][i], r)
+                x = run_block(_tree_index(params["units"][i], r), blk, x, c)
+    elif cfg.unit:
+        def unit_body(x, unit_params):
+            aux: Dict[str, Any] = {}
+            for i, blk in enumerate(cfg.unit):
+                x, _, a = block_apply(unit_params[i], cfg, blk, x, pos,
+                                      context=ctx, settings=settings)
+                _merge_aux(aux, a)
+            return x, aux
+
+        body = unit_wrapper(unit_body) if unit_wrapper else unit_body
+        for r in range(cfg.repeats):
+            x, aux = body(x, [_tree_index(t, r) for t in params["units"]])
+            _merge_aux(aux_acc, aux)
     for i, blk in enumerate(cfg.tail):
         c = cache["tail"][i] if with_cache else None
         x = run_block(params["tail"][i], blk, x, c)

@@ -1,0 +1,208 @@
+"""Optimizers with capacity-relevant state layouts, after the reference
+package's optim/optimizers.py.
+
+The WSMC planner treats the optimizer as a memory knob:
+  adamw_f32  — m, v in f32 (8 bytes/param of state)        fastest, largest
+  adamw_bf16 — m, v in bf16 (4 bytes/param)                minor quality cost
+  adafactor  — factored second moment (~0 bytes/param)     cheapest
+
+The reference's order of operations and dtypes are kept: f32 arithmetic,
+state in `_acc_dtype`, parameters cast back to their own dtype. Where the
+reference returns new arrays, `apply_updates` and `clip_by_global_norm`
+update the tensors IN PLACE (under torch.no_grad()) and return the same
+trees. Leaves with a leading stacking axis (the unit pattern's [repeats,
+...]) are updated one slice at a time: the update is elementwise along that
+axis, and the f32 temporaries of a whole full-width leaf would be
+gigabytes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    kind: str = "adamw_f32"          # adamw_f32 | adamw_bf16 | adafactor
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    # adafactor
+    decay_rate: float = 0.8
+    clip_threshold: float = 1.0
+
+    @property
+    def state_bytes_per_param(self) -> float:
+        """Closed-form state footprint (the predictor's Eq.7 'retrievable'
+        term; excludes the params themselves)."""
+        return {"adamw_f32": 8.0, "adamw_bf16": 4.0,
+                "adafactor": 0.05}[self.kind]
+
+
+KINDS = ("adamw_f32", "adamw_bf16", "adafactor")
+
+
+def _acc_dtype(ocfg: OptimizerConfig) -> torch.dtype:
+    return torch.bfloat16 if ocfg.kind == "adamw_bf16" else torch.float32
+
+
+def _slices(t: torch.Tensor):
+    """Views of t along its leading (stacking) axis when it has one (3 or
+    more dims), else t itself."""
+    return list(t.unbind(0)) if t.dim() >= 3 else [t]
+
+
+# ---------------------------------------------------------------------------
+
+def init_state(ocfg: OptimizerConfig, params) -> Any:
+    """Zero state on each parameter's device; "count" is a 0-d int32
+    tensor."""
+    dev = tree_leaves(params)[0].device
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    if ocfg.kind in ("adamw_f32", "adamw_bf16"):
+        dt = _acc_dtype(ocfg)
+
+        def zeros(p):
+            return torch.zeros(p.shape, dtype=dt, device=p.device)
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+                "count": count}
+    if ocfg.kind == "adafactor":
+        def factored(p):
+            f32 = dict(dtype=torch.float32, device=p.device)
+            if p.dim() >= 2:
+                return {"vr": torch.zeros(p.shape[:-1], **f32),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
+            return {"v": torch.zeros(p.shape, **f32)}
+        return {"f": tree_map(factored, params), "count": count}
+    raise ValueError(ocfg.kind)
+
+
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def apply_updates(ocfg: OptimizerConfig, params, grads, state, lr):
+    """One update IN PLACE: params and state leaves are overwritten, and the
+    same trees returned as (params, state). lr: a float or 0-d tensor."""
+    if ocfg.kind in ("adamw_f32", "adamw_bf16"):
+        return _adamw(ocfg, params, grads, state, float(lr))
+    if ocfg.kind == "adafactor":
+        return _adafactor(ocfg, params, grads, state, float(lr))
+    raise ValueError(ocfg.kind)
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32)
+
+
+def _count_f32(state, device) -> torch.Tensor:
+    """state["count"] + 1 (in place), as a 0-d f32 tensor on `device`."""
+    state["count"] += 1
+    return _f32(state["count"]).to(device)
+
+
+def _adamw(ocfg, params, grads, state, lr):
+    cf = _count_f32(state, tree_leaves(params)[0].device)
+    bc1 = 1.0 - ocfg.b1 ** cf
+    bc2 = 1.0 - ocfg.b2 ** cf
+
+    def upd(p, g, m, v):
+        for ps, gs, ms, vs in zip(_slices(p), _slices(g), _slices(m),
+                                  _slices(v)):
+            gf = _f32(gs)
+            mf = ocfg.b1 * _f32(ms) + (1 - ocfg.b1) * gf
+            vf = ocfg.b2 * _f32(vs) + (1 - ocfg.b2) * gf * gf
+            step = (mf / bc1) / (torch.sqrt(vf / bc2) + ocfg.eps)
+            pf = _f32(ps)
+            pf = pf - lr * (step + ocfg.weight_decay * pf)
+            ps.copy_(pf)
+            ms.copy_(mf)
+            vs.copy_(vf)
+
+    tree_map(upd, params, grads, state["m"], state["v"])
+    return params, state
+
+
+def _factored_slices(p, f):
+    """The statistics of p slice by slice, as _slices(p) cuts p: a stacked
+    [R, a, b] leaf's vr [R, a] / vc [R, b] by their leading axis; a 2-d
+    leaf's whole (vr, vc) (a stacked [R, d] norm is factored over both
+    axes, as in the reference); a 1-d leaf's v."""
+    if p.dim() >= 3:
+        return [{"vr": a, "vc": b}
+                for a, b in zip(f["vr"].unbind(0), f["vc"].unbind(0))]
+    return [f]
+
+
+def _adafactor_step(gs, f):
+    """The second-moment step of one slice from its (already updated)
+    statistics f."""
+    gf = _f32(gs)
+    if gs.dim() >= 2:
+        vr, vc = f["vr"], f["vc"]
+        denom = (vr[..., None] / torch.clamp(
+            vr.mean(dim=-1, keepdim=True)[..., None], min=1e-30)
+            ) * vc[..., None, :]
+        return gf / torch.sqrt(torch.clamp(denom, min=1e-30))
+    return gf / torch.sqrt(torch.clamp(f["v"], min=1e-30))
+
+
+def _adafactor(ocfg, params, grads, state, lr):
+    cf = _count_f32(state, tree_leaves(params)[0].device)
+    rho = torch.clamp(1.0 - cf ** (-ocfg.decay_rate), max=0.999)
+
+    def upd(p, g, f):
+        fs = _factored_slices(p, f)
+        # the statistics first, and the sum of step^2 over the whole leaf:
+        # the update is clipped by the leaf's RMS, not a slice's
+        sq = torch.zeros((), dtype=torch.float32, device=p.device)
+        for gs, fl in zip(_slices(g), fs):
+            gf = _f32(gs)
+            g2 = gf * gf + 1e-30
+            if gs.dim() >= 2:
+                fl["vr"].copy_(rho * fl["vr"] + (1 - rho) * g2.mean(dim=-1))
+                fl["vc"].copy_(rho * fl["vc"] + (1 - rho) * g2.mean(dim=-2))
+            else:
+                fl["v"].copy_(rho * fl["v"] + (1 - rho) * g2)
+            st = _adafactor_step(gs, fl)
+            sq += (st * st).sum()
+        rms = torch.sqrt(sq / p.numel() + 1e-30)
+        div = torch.clamp(rms / ocfg.clip_threshold, min=1.0)
+        for ps, gs, fl in zip(_slices(p), _slices(g), fs):
+            st = _adafactor_step(gs, fl) / div
+            pf = _f32(ps)
+            pf = pf - lr * (st + ocfg.weight_decay * pf)
+            ps.copy_(pf)
+
+    tree_map(upd, params, grads, state["f"])
+    return params, state
+
+
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32 (0-d tensor)."""
+    total = None
+    for x in tree_leaves(tree):
+        for xs in _slices(x):
+            t = (_f32(xs) ** 2).sum()
+            total = t if total is None else total + t
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def clip_by_global_norm(tree, max_norm: float):
+    """Scale every leaf IN PLACE by min(1, max_norm / norm) (in f32, cast
+    back to the leaf's dtype); returns (the same tree, the norm before)."""
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    for x in tree_leaves(tree):
+        for xs in _slices(x):
+            xs.copy_(_f32(xs) * scale)
+    return tree, norm

@@ -19,7 +19,10 @@ Paged-pool notes (see serving.engine for the admission/eviction policy):
   invalidates re-linked blocks (pos -1) before a NEW owner's table routes a
   read through them.
 
-There is no jit here: the steps run eagerly, and every pool operation
+Every step runs under torch.no_grad(): serving builds no autograd graph,
+whatever the caller's grad mode (the in-place cache writes could not be
+recorded). There is no jit here: the steps run eagerly, and every pool
+operation
 updates the pool's tensors IN PLACE and returns the same tree (the reference
 package returns new arrays from donated buffers). Whole-prompt prefill
 writes each layer's K/V into the pool as that layer runs, so the rings of
@@ -53,6 +56,7 @@ def make_prefill_step(cfg: ModelConfig,
     settings = settings or M.ModelSettings()
     psettings = dataclasses.replace(settings, build_cache=True)
 
+    @torch.no_grad()
     def prefill_step(params, tokens, context: int):
         logits, cache, _ = M.apply(params, cfg, tokens, settings=psettings,
                                    context=context, logits_last_only=True)
@@ -67,6 +71,7 @@ def make_decode_step(cfg: ModelConfig,
     ring cache tree, updated in place: (logits [b, V], cache)."""
     settings = settings or M.ModelSettings()
 
+    @torch.no_grad()
     def decode_step(params, tokens, positions, cache, context: int):
         logits, cache, _ = M.apply(params, cfg, tokens, positions=positions,
                                    cache=cache, decode=True,
@@ -76,6 +81,7 @@ def make_decode_step(cfg: ModelConfig,
     return decode_step
 
 
+@torch.no_grad()
 def greedy_generate(params, cfg: ModelConfig, prompt_tokens, n_steps: int,
                     context: int, settings: Optional[M.ModelSettings] = None):
     """Greedy decoding, prompt_tokens [b, p] -> [b, n_steps] int32: prefill
@@ -217,6 +223,7 @@ def make_paged_prefill_step(cfg: ModelConfig,
     settings = settings or M.ModelSettings()
     psettings = dataclasses.replace(settings, build_cache=True)
 
+    @torch.no_grad()
     def prefill_paged(params, tokens, lanes, tables, pool, context: int):
         sub = gather_pool_lanes(pool, lanes)
         logits, new_sub, _ = M.apply(params, cfg, tokens, cache=sub,
@@ -233,6 +240,7 @@ def make_paged_decode_step(cfg: ModelConfig,
     """One batched decode tick through the block tables at lane width."""
     settings = settings or M.ModelSettings()
 
+    @torch.no_grad()
     def decode_paged(params, tokens, positions, tables, pool, context: int):
         logits, new_pool, aux = M.apply(params, cfg, tokens,
                                         positions=positions, cache=pool,
@@ -307,6 +315,7 @@ def make_compact_decode_step(cfg: ModelConfig,
     lanes' per-lane rows are gathered, stepped and written back."""
     settings = settings or M.ModelSettings()
 
+    @torch.no_grad()
     def decode_compact(params, tokens, positions, tables, lane_ids, pool,
                        context: int):
         sub = gather_pool_lanes(pool, lane_ids)
@@ -336,6 +345,7 @@ def make_chunk_prefill_step(cfg: ModelConfig,
     computing every position's logits."""
     settings = settings or M.ModelSettings()
 
+    @torch.no_grad()
     def prefill_chunk(params, tokens, positions, tables, lane_ids, pool,
                       context: int):
         sub = gather_pool_lanes(pool, lane_ids)

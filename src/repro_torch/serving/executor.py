@@ -178,6 +178,7 @@ class PagedTorchExecutor:
             out[i, :len(tbl)] = tbl
         return out
 
+    @torch.no_grad()
     def prefill_batch(self, lanes: Sequence[int],
                       prompts: Sequence[Sequence[int]],
                       tables: Sequence[Sequence[int]]) -> List[int]:
@@ -234,6 +235,7 @@ class PagedTorchExecutor:
             return self.n_lanes
         return _cover(max(int(n_active), 1), self.lane_buckets)
 
+    @torch.no_grad()
     def decode(self, tokens: Sequence[int], positions: Sequence[int],
                tables: Sequence[Sequence[int]], lanes=None) -> List[int]:
         if self.compact and lanes is not None:
@@ -300,6 +302,7 @@ class PagedTorchExecutor:
             res[i] = int(out[j])
         return res
 
+    @torch.no_grad()
     def prefill_chunks(self, lanes: Sequence[int],
                        chunks: Sequence[Sequence[int]],
                        starts: Sequence[int],

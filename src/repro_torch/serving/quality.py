@@ -42,6 +42,7 @@ class AgreementReport:
                 f"{exact}/{len(self.per_request)} requests exact)")
 
 
+@torch.no_grad()
 def token_agreement(params, cfg, trace: Sequence, report, *,
                     context: int, settings=None,
                     ref_cache: Optional[Dict] = None,
@@ -89,6 +90,7 @@ def token_agreement(params, cfg, trace: Sequence, report, *,
         per_request=tuple(fracs), first_divergence=tuple(firsts))
 
 
+@torch.no_grad()
 def measure_bend(params, cfg, trace: Sequence, *, n_lanes: int,
                  n_blocks: int, kv_block: int, context: int,
                  kv_quant: str = "none", kv_retain: int = 0,

@@ -36,7 +36,14 @@ def test_every_module_imports_without_jax_or_reference_package():
                  "repro_torch.kernels.mlstm_scan",
                  "repro_torch.models.recurrent",
                  "repro_torch.serving.quality",
-                 "repro_torch.configs.mistral_nemo_12b"):
+                 "repro_torch.configs.mistral_nemo_12b",
+                 "repro_torch.kernels.flash_attention_bwd",
+                 "repro_torch.optim.optimizers", "repro_torch.optim.schedule",
+                 "repro_torch.optim.compress",
+                 "repro_torch.runtime.train_step",
+                 "repro_torch.runtime.schedule", "repro_torch.runtime.fault",
+                 "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
+                 "repro_torch.launch.train", "repro_torch.tree"):
         assert want in names
     code = (
         "import importlib, sys\n"
@@ -48,6 +55,7 @@ def test_every_module_imports_without_jax_or_reference_package():
         "m.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
+        "assert 'ml_dtypes' not in sys.modules\n"
         "print('OK', len(names))\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr
@@ -69,14 +77,18 @@ def test_no_source_file_names_jax_or_the_reference_package():
 
 def test_build_module_imports_without_nvcc_and_raises_only_on_use():
     import torch
-    from repro_torch.kernels import (build, flash_attention, mlstm_scan,
+    from repro_torch.kernels import (build, flash_attention,
+                                     flash_attention_bwd, mlstm_scan,
                                      paged_decode, paged_prefill)
     assert set(build.SOURCES) == {paged_decode.SOURCE, paged_prefill.SOURCE,
-                                  flash_attention.SOURCE, mlstm_scan.SOURCE}
+                                  flash_attention.SOURCE,
+                                  flash_attention_bwd.SOURCE,
+                                  mlstm_scan.SOURCE}
     for f in build.SOURCES + build.HEADERS:
         assert os.path.exists(os.path.join(build.CSRC, f)), f
     assert paged_decode.launches == 0 and paged_prefill.launches == 0
     assert flash_attention.launches == 0 and mlstm_scan.launches == 0
+    assert flash_attention_bwd.launches == 0
     if build.find_nvcc() is None:
         with pytest.raises(build.KernelCompileError, match="nvcc"):
             build.library(paged_decode.SOURCE)
