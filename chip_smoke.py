@@ -4,10 +4,12 @@
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phases 1,2    # build + kernel checks only
     python3 chip_smoke.py --phases 1,8    # build + the training path only
+    python3 chip_smoke.py --phases 1,9    # build + gemma3-12b ring/slot only
+    python3 chip_smoke.py --phases 1,10   # build + recurrentgemma-9b only
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. device: the card's name and power limit, its properties beside the
-     constants the capacity model uses; build the five CUDA kernel sources
+     constants the capacity model uses; build the six CUDA kernel sources
      from src/repro_torch/kernels/csrc/, one nvcc each, all started
      together.
   2. each kernel's wrapper against its plain PyTorch version on the card, at
@@ -22,7 +24,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      ops.flash_attention_trainable against autograd through the plain
      forward; for the mLSTM scan the reference sweep (dk != dv too), with
      and without a carried state, fresh rows, padded steps, padding-only
-     rows, f32 / bf16 and xlstm-1.3b's serving shape [32, 256, 1024].
+     rows, f32 / bf16 and xlstm-1.3b's serving shape [32, 256, 1024]; for
+     ring decode f32 / bf16, no mask / window / chunk, G = 1, 2, 4, 16,
+     head_dim 64, 128, 256, rings wrapped at heterogeneous positions,
+     inert lanes and empty rings (exact zeros), lengths no tile divides and
+     the ring shapes of phases 6, 9 and 10.
   3. the main path at full width: mistral-nemo-12b, all 40 layers, random
      bf16 weights from a seed; the capacity model sizes the KV block pool;
      the engine serves a seeded trace of short and long prompts through
@@ -36,7 +42,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      torch.cuda.max_memory_allocated() (printed, not asserted).
   6. a fixed subset of the trace through greedy_generate at full width and
      depth (whole-prompt prefill into ring caches through the flash kernel,
-     then ring decode), held against phase 3's bf16-pool streams, the first
+     then ring decode through the ring decode kernel: 40 launches a decode
+     step), held against phase 3's bf16-pool streams, the first
      divergence judged; then the int8 pool's token agreement with
      serving.quality.token_agreement (printed, not asserted).
   7. the recurrent path at full width and depth: xlstm-1.3b, all 48 layers
@@ -62,10 +69,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      asserted); at 2 layers, one step's loss and gradients through the
      kernels against those through the plain dense attention (loss
      within 1e-4 of itself, each gradient leaf within 5e-2).
+  9. ring/slot serving at full width and depth: gemma3-12b, all 48 layers
+     (40 local with window 1024, 8 global), random bf16 weights from a
+     seed, context 4096, 8 lanes; a seeded trace of 16 requests (prompts
+     64-2048, 16-32 new tokens) served (a) by the slot engine and
+     TorchExecutor (every layer a ring: ring decode launches = 48 x decode
+     ticks, flash = 48 x prefill calls) and (b) by the compacted chunked
+     paged engine (the 8 global layers page through kernels 1 and 2, the
+     40 local rings take ring decode and the plain ring chunk append;
+     strict audit); launch counters zeroed just before and read just
+     after, counts asserted exactly; torch.cuda.max_memory_allocated()
+     beside the capacity model's prediction for both plans; the lane
+     copies of a compacted step timed; the trace again at 6 layers (one
+     unit) through the kernels and the plain versions on both engines,
+     judged as in phase 4.
+ 10. the same for recurrentgemma-9b, all 38 blocks (26 RG-LRU, 12 local
+     attention with window 2048 and one kv head), context 4096 (the
+     attention layers are rings, nothing pages), 12 requests with prompts
+     64-3000 (rings wrap during prefill and at decode): ring decode
+     launches = 12 x decode ticks on both engines; RG-LRU state in
+     per-lane leaves; kernels against plain versions at one unit plus the
+     tail.
   then: each kernel timed at the largest shape its path launched it at
-  (the flash forward and backward also at phase 8's training shape),
-  beside its plain version, its bound and (flash attention, forward and
-  backward) the one PyTorch call that computes the same function; one JSON
+  (the flash forward and backward also at phase 8's training shape; ring
+  decode at phase 9's slot-mode global ring [8, 4096, 8, 256]), beside its
+  plain version, its bound and (flash attention, forward and backward; ring
+  decode) the one PyTorch call that computes the same function; one JSON
   line `kernels`.
 
 The last line of standard output is
@@ -96,9 +125,9 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import (DECODE, TRAIN, BlockSpec,  # noqa: E402
                                       ShapeConfig, depth_variant)
 from repro_torch.core import classifier as CL, predictor as PR  # noqa: E402
-from repro_torch.kernels import (build, flash_attention,  # noqa: E402
-                                 flash_attention_bwd, mlstm_scan,
-                                 paged_decode, paged_prefill)
+from repro_torch.kernels import (build, decode_attention,  # noqa: E402
+                                 flash_attention, flash_attention_bwd,
+                                 mlstm_scan, paged_decode, paged_prefill)
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.launch import train as LT  # noqa: E402
@@ -112,13 +141,14 @@ from repro_torch.runtime import train_step as TS  # noqa: E402
 from repro_torch.serving import (BlockAllocator, Engine, leak_check,  # noqa: E402
                                  synthetic_trace, trace_context)
 from repro_torch.serving import quality as Q  # noqa: E402
-from repro_torch.serving.executor import PagedTorchExecutor  # noqa: E402
+from repro_torch.serving.executor import (  # noqa: E402
+    PagedTorchExecutor, TorchExecutor)
 from repro_torch.tree import tree_leaves, tree_paths  # noqa: E402
 
 DEV = torch.device("cuda:0")
 SEED = 0
 KERNEL_MODULES = (paged_decode, paged_prefill, flash_attention,
-                  flash_attention_bwd, mlstm_scan)
+                  flash_attention_bwd, mlstm_scan, decode_attention)
 
 # Tolerances of kernel vs plain version on the card. Both sides compute in
 # f32 from the same stored values (for a quantised pool the plain version is
@@ -197,6 +227,11 @@ def fail(msg):
     sys.exit(1)
 
 
+def _zero_launches():
+    for mod in KERNEL_MODULES:
+        mod.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # Phase 1
 # ---------------------------------------------------------------------------
@@ -240,6 +275,8 @@ def phase_device():
 
 _POOL_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 MN = dict(K=8, G=4, hd=128)      # mistral-nemo-12b's attention heads
+GM = dict(K=8, G=2, hd=256)      # gemma3-12b's
+RG = dict(K=1, G=16, hd=256)     # recurrentgemma-9b's (MQA)
 
 
 def make_pool(gen, *, lens, K, hd, bs, m_blocks, codec, extra_blocks=3):
@@ -394,6 +431,50 @@ def prefill_case(gen, name, *, hist, clens, C, K, G, hd, bs, codec,
                 fail(f"{name}: scale leaf {n} off by {int(ulp)} ULP")
     if unmapped_tail and not torch.equal(ca["pos"][0], cache["pos"][0]):
         fail(f"{name}: scratch block written")
+    return err
+
+
+def ring_positions(ends, L, empty=()):
+    """[b, L] int32 on the card: lane i's ring holds positions up to
+    ends[i] at slot pos % L (the latest L of them: ends[i] >= L has
+    wrapped, so slot 0 is not its oldest position); `empty` lanes hold
+    nothing."""
+    e = np.asarray(ends, np.int64)[:, None]
+    slots = np.arange(L)[None]
+    pos = e - np.mod(e - slots, L)
+    pos = np.where(pos >= 0, pos, -1)
+    for i in empty:
+        pos[i] = -1
+    return torch.from_numpy(pos.astype(np.int32)).to(DEV)
+
+
+def ring_case(gen, name, *, L, K, G, hd, ends, qdt=torch.bfloat16,
+              kvdt=None, window=None, chunk=None, empty=(), inert=(),
+              kv_block=512):
+    """Kernel 6 (ring decode) against its plain version: lane i's ring of
+    L slots (ring_positions) is queried at position ends[i]; `inert` lanes
+    at -1. Inert lanes and empty rings must give exact zeros."""
+    kvdt = kvdt or qdt
+    b = len(ends)
+    cpos = ring_positions(ends, L, empty)
+    positions = torch.tensor(ends, dtype=torch.int32, device=DEV)
+    for i in inert:
+        positions[i] = -1
+    q = torch.randn((b, K, G, hd), generator=gen, device=DEV).to(qdt)
+    k = torch.randn((b, L, K, hd), generator=gen, device=DEV).to(kvdt)
+    v = torch.randn((b, L, K, hd), generator=gen, device=DEV).to(kvdt)
+    args = (q, k, v, cpos, positions)
+    got = decode_attention.decode_attention_fwd(
+        *args, window=window, chunk=chunk, kv_block=kv_block)
+    torch.cuda.synchronize()
+    want = decode_attention.decode_attention_plain(*args, window=window,
+                                                   chunk=chunk)
+    tol = (TOL_F32 if qdt == torch.float32 and kvdt == torch.float32
+           else TOL_BF16)
+    err = check_close(name, got, want, tol)
+    for i in set(empty) | set(inert):
+        if float(got[i].float().abs().max()) != 0.0:
+            fail(f"{name}: lane {i} sees nothing but its output is not zero")
     return err
 
 
@@ -569,7 +650,8 @@ def phase_kernels():
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
     errs = {"paged_decode": 0.0, "paged_prefill": 0.0,
             "flash_attention": 0.0, "flash_attention_train": 0.0,
-            "flash_attention_bwd": 0.0, "mlstm_scan": 0.0}
+            "flash_attention_bwd": 0.0, "mlstm_scan": 0.0,
+            "decode_attention": 0.0}
     n = 0
     S = dict(K=8, G=4, hd=128, bs=16)      # mistral-nemo-12b serving shapes
 
@@ -773,11 +855,49 @@ def phase_kernels():
     ml("serve [32, 256, 1024] c128 bf16 initial", bh=32, s=256, dk=1024,
        dv=1024, chunk=128, dt=torch.bfloat16, initial=True, fresh=(5, 17),
        pad_tail=55)
+    def r(name, **kw):
+        nonlocal n
+        errs["decode_attention"] = max(errs["decode_attention"],
+                                       ring_case(gen, "ring " + name, **kw))
+        n += 1
+
+    # the shapes of phases 9 and 10 (gemma3-12b's local and global rings,
+    # recurrentgemma-9b's MQA ring), rings wrapped at heterogeneous
+    # positions, f32 and bf16
+    wrap8 = [5000, 1023, 1024, 3, 2047, 700, 1500, 4095]
+    for dt in (torch.float32, torch.bfloat16):
+        t = "f32" if dt == torch.float32 else "bf16"
+        r(f"gemma3 local [8, 1024] window1024 {t}", L=1024, ends=wrap8,
+          window=1024, qdt=dt, **GM)
+        r(f"gemma3 global [8, 4096] {t}", L=4096, qdt=dt, **GM,
+          ends=[4095, 300, 1777, 4000, 513, 2048, 257, 1500])
+        r(f"rgemma [8, 2048] window2048 {t}", L=2048, window=2048, qdt=dt,
+          ends=[3000, 2047, 2048, 64, 4095, 1000, 2500, 100], **RG)
+        r(f"chunk512 G4 hd128 L1000 {t}", L=1000, ends=[1999, 512, 5],
+          chunk=512, qdt=dt, **MN)
+        r(f"no mask G4 hd128 L2080 (greedy ring) {t}", L=2080, ends=[2070],
+          qdt=dt, **MN)
+    # G = 1, 2, 4, 16; head_dim 64, 128, 256; lengths no tile divides;
+    # inert lanes and empty rings; a tile cap below the kernel's own
+    r("G1 hd64 L37 window20 f32", L=37, ends=[100, 36, 5], K=2, G=1, hd=64,
+      window=20, qdt=torch.float32)
+    r("G16 hd64 L4099 chunk1000", L=4099, ends=[9000, 4098, 1], K=2, G=16,
+      hd=64, chunk=1000)
+    r("G16 hd128 L777", L=777, ends=[800, 776, 1500], K=1, G=16, hd=128)
+    r("G2 hd256 inert and empty lanes", L=300, ends=[400, 299, 10, 50],
+      inert=(1,), empty=(2,), K=2, G=2, hd=256)
+    r("G4 hd128 all inert", L=64, ends=[10, 70], inert=(0, 1), **MN)
+    r("G2 hd256 bf16 q f32 ring", L=1024, ends=[3000, 900], window=1024,
+      kvdt=torch.float32, **GM)
+    r("G2 hd256 kv_block16", L=1000, ends=[1200, 999, 17], kv_block=16,
+      **GM)
+    r("G1 hd128 single slot", L=1, ends=[0, 5], K=4, G=1, hd=128)
     log(f"[2] {n} kernel-vs-plain cases agree on the card: max abs err "
         f"decode {errs['paged_decode']:.3e}, prefill "
         f"{errs['paged_prefill']:.3e}, flash {errs['flash_attention']:.3e} "
         f"(training shape {errs['flash_attention_train']:.3e}), "
-        f"mlstm out {errs['mlstm_scan']:.3e}, flash backward dq "
+        f"mlstm out {errs['mlstm_scan']:.3e}, ring decode "
+        f"{errs['decode_attention']:.3e}, flash backward dq "
         f"{bwd_errs['dq']:.3e} dk {bwd_errs['dk']:.3e} dv "
         f"{bwd_errs['dv']:.3e} "
         f"(tolerances: f32 {TOL_F32:.0e}, bf16 "
@@ -847,48 +967,85 @@ def plan_pool(cfg, trace, context, kv_quant):
             "per_block": float(per_block)}
 
 
-class RecordingExecutor(PagedTorchExecutor):
+class Clocked:
+    """Keeps the host seconds of each decode tick in `decode_s`: a tick
+    ends in the read of its tokens, so its work on the card is done when
+    the call returns. Mixed into an executor."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.decode_s = []
+
+    def decode(self, *a, **kw):
+        t0 = time.time()
+        out = super().decode(*a, **kw)
+        self.decode_s.append(time.time() - t0)
+        return out
+
+
+class Recording(Clocked):
     """Records, per argmax call, what each active row was fed (decode: the
     input token and its position; chunk: the chunk's tokens and start;
     whole-prompt prefill: the prompt and 0), the token chosen, the row's
     top-2 logit gap as a fraction of the row's logit standard deviation
     (phase 4 judges divergences with it) and, with `keep_logits`, the rows'
     logits on the host (phases 6 and 7 judge with them); and the mLSTM scan
-    kernel's launches made inside decode ticks (there should be none)."""
+    kernel's launches made inside decode ticks (there should be none).
+    Mixed into an executor: the paged one packs a decode tick's active
+    rows first (PACKED), the slot one computes every slot's row."""
+    PACKED = True
 
     def __init__(self, *a, keep_logits=False, **kw):
         super().__init__(*a, **kw)
         self.calls = []
-        self._fed = []
+        self._fed, self._rows = [], []
         self.keep_logits = keep_logits
         self.decode_mlstm_launches = 0
 
-    def decode(self, tokens, positions, tables, lanes=None):
-        rows = lanes if lanes is not None else range(len(tokens))
+    def decode(self, tokens, positions, tables=None, lanes=None):
+        rows = list(lanes if lanes is not None else range(len(tokens)))
         self._fed = [(int(tokens[i]), int(positions[i])) for i in rows]
+        self._rows = list(range(len(rows))) if self.PACKED else rows
         before = mlstm_scan.launches
         out = super().decode(tokens, positions, tables, lanes)
         self.decode_mlstm_launches += mlstm_scan.launches - before
         return out
 
-    def prefill_batch(self, lanes, prompts, tables):
+    def prefill_batch(self, lanes, prompts, tables=None):
         self._fed = [(tuple(int(t) for t in p), 0) for p in prompts]
+        self._rows = list(range(len(prompts)))
         return super().prefill_batch(lanes, prompts, tables)
 
     def prefill_chunks(self, lanes, chunks, starts, *a, **kw):
         self._fed = [(tuple(int(t) for t in c), int(s))
                      for c, s in zip(chunks, starts)]
+        self._rows = list(range(len(chunks)))
         return super().prefill_chunks(lanes, chunks, starts, *a, **kw)
 
     def _argmax(self, logits):
-        n = len(self._fed)
-        lg = logits[:n].float()
+        lg = logits[self._rows].float()
         top = lg.topk(2, dim=-1).values
         gap = ((top[:, 0] - top[:, 1]) / lg.std(dim=-1)).cpu().numpy()
         toks = torch.argmax(logits, dim=-1).cpu().numpy()
         kept = lg.cpu() if self.keep_logits else None
-        self.calls.append((self._fed, toks[:n].copy(), gap, kept))
+        self.calls.append((self._fed, toks[self._rows].copy(), gap, kept))
         return toks
+
+
+class ClockedExecutor(Clocked, PagedTorchExecutor):
+    pass
+
+
+class ClockedSlotExecutor(Clocked, TorchExecutor):
+    pass
+
+
+class RecordingExecutor(Recording, PagedTorchExecutor):
+    pass
+
+
+class RecordingSlotExecutor(Recording, TorchExecutor):
+    PACKED = False
 
 
 # every kernel of the path, or every kernel's plain version
@@ -897,10 +1054,18 @@ SETTINGS = {"kernel": ModelSettings(),
                                    mlstm_backend="naive")}
 
 
+def tick_times(ex):
+    """A log fragment: the decode ticks' host times."""
+    t = np.asarray(ex.decode_s) * 1e3
+    return (f"decode ticks {np.mean(t):.1f} ms on average (median "
+            f"{np.median(t):.1f}, {np.min(t):.1f}-{np.max(t):.1f}), "
+            f"{t.sum() / 1e3:.2f} s in all")
+
+
 def serve(cfg, params, trace, context, n_blocks, kv_quant, backend="kernel",
           record=False, keep_logits=False, prefill_budget=0):
     kw = dict(keep_logits=keep_logits) if record else {}
-    cls = RecordingExecutor if record else PagedTorchExecutor
+    cls = RecordingExecutor if record else ClockedExecutor
     ex = cls(params, cfg, n_lanes=LANES, n_blocks=n_blocks, kv_block=KV_BLOCK,
              context=context, compact=True, chunk=CHUNK, kv_quant=kv_quant,
              settings=SETTINGS[backend], device=DEV, **kw)
@@ -943,14 +1108,15 @@ def phase_main(cfg, params):
         plans[kv_quant] = plan
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        paged_decode.launches = 0
-        paged_prefill.launches = 0
-        flash_attention.launches = 0
+        _zero_launches()
         ex, rep, dt = serve(cfg, params, trace, context, plan["pool_blocks"],
                             kv_quant, record=kv_quant == "none",
                             keep_logits=kv_quant == "none")
         nd, npf = paged_decode.launches, paged_prefill.launches
         nfa = flash_attention.launches
+        if decode_attention.launches:
+            fail(f"ring decode launched {decode_attention.launches} times: "
+                 "every layer of this model pages")
         peak[kv_quant] = torch.cuda.max_memory_allocated()
         if rep.prefill_calls <= 0 or ex.chunk_calls <= 0:
             fail(f"whole-prompt prefill calls {rep.prefill_calls}, chunk "
@@ -974,7 +1140,8 @@ def phase_main(cfg, params):
             f"{rep.prefill_calls} whole-prompt prefill calls, the rest in "
             f"{ex.chunk_calls} chunk calls), {gen_tokens} generated tokens "
             f"in {ex.decodes} decode "
-            f"ticks, {rep.ticks} ticks, {dt:.2f}s wall; pool "
+            f"ticks, {rep.ticks} ticks, {dt:.2f}s wall ({tick_times(ex)}); "
+            f"pool "
             f"{plan['pool_blocks']} blocks (capacity model allows "
             f"{plan['capacity_blocks']} under {HBM_BUDGET:.3e} B), peak "
             f"blocks {rep.peak_blocks}; kernel launches decode {nd} = "
@@ -995,9 +1162,11 @@ def phase_main(cfg, params):
 # Phase 4: kernels vs plain versions end to end, 4 layers
 # ---------------------------------------------------------------------------
 
-def phase_identity(cfg, params, trace, context, units=4, tag="4"):
+def phase_identity(cfg, params, trace, context, units=4, tag="4",
+                   slots=False):
     """The trace at `units` repeats of the unit pattern, every kernel of the
-    path against every plain version."""
+    path against every plain version: through the paged engine, or with
+    `slots` through the slot engine."""
     cfg4 = depth_variant(cfg, units)
     p4 = dict(params)
     p4["units"] = [{name: {k: v[:units] for k, v in sub.items()}
@@ -1006,8 +1175,12 @@ def phase_identity(cfg, params, trace, context, units=4, tag="4"):
     n_blocks = LANES * (-(-context // KV_BLOCK))
     runs = {}
     for backend in ("kernel", "naive"):
-        ex, rep, dt = serve(cfg4, p4, trace, context, n_blocks, "none",
-                            backend=backend, record=True)
+        if slots:
+            ex, rep, dt = serve_slots(cfg4, p4, trace, context,
+                                      backend=backend, record=True)
+        else:
+            ex, rep, dt = serve(cfg4, p4, trace, context, n_blocks, "none",
+                                backend=backend, record=True)
         runs[backend] = (ex.calls, {c.rid: c.tokens for c in rep.completions})
     (ca, ta), (cb, tb) = runs["kernel"], runs["naive"]
     same = sum(ta[r] == tb[r] for r in ta)
@@ -1027,7 +1200,8 @@ def phase_identity(cfg, params, trace, context, units=4, tag="4"):
     if same != len(ta) and not fresh:
         fail("streams differ but no call diverged on equal inputs")
     worst = max((max(f[4], f[5]) for f in fresh), default=0.0)
-    log(f"[{tag}] {cfg4.name}, {cfg4.n_layers} layers, kernels vs plain "
+    log(f"[{tag}] {cfg4.name}, {cfg4.n_layers} layers, "
+        f"{'slot' if slots else 'paged'} engine, kernels vs plain "
         f"versions on the card: {same}/"
         f"{len(ta)} token streams equal; {len(fresh)} fresh divergences "
         f"(same input, different token), largest top-2 gap among them "
@@ -1190,22 +1364,24 @@ def phase_greedy(cfg, params, trace, context, reps, calls):
     rids = greedy_subset(trace)
     by_rid = {r.rid: r for r in trace}
     eng = {c.rid: list(c.tokens) for c in reps["none"].completions}
-    paged_decode.launches = 0
-    paged_prefill.launches = 0
-    flash_attention.launches = 0
+    _zero_launches()
     outs, dt = replay_greedy(cfg, params, trace, rids, context)
-    nfa = flash_attention.launches
-    if (nfa != cfg.n_layers * len(rids) or paged_decode.launches
-            or paged_prefill.launches):
+    nfa, nda = flash_attention.launches, decode_attention.launches
+    steps = sum(by_rid[r].max_new - 1 for r in rids)
+    if (nfa != cfg.n_layers * len(rids) or nda != cfg.n_layers * steps
+            or paged_decode.launches or paged_prefill.launches):
         fail(f"greedy launches: flash {nfa} (want {cfg.n_layers} x "
-             f"{len(rids)}), paged decode {paged_decode.launches}, "
+             f"{len(rids)}), ring decode {nda} (want {cfg.n_layers} x "
+             f"{steps}), paged decode {paged_decode.launches}, "
              f"paged prefill {paged_prefill.launches} (want 0)")
     judge_greedy("6", cfg, params, trace, rids, outs, dt, eng, calls,
                  context, "the bf16-pool engine's",
-                 f"flash launches {nfa} = {cfg.n_layers} x {len(rids)}")
+                 f"flash launches {nfa} = {cfg.n_layers} x {len(rids)}, "
+                 f"ring decode launches {nda} = {cfg.n_layers} x {steps} "
+                 f"decode steps")
     req = by_rid[rids[0]]
     greedy_controls("6", cfg, params, req, context, req.max_new,
-                    "with the plain prefill attention",
+                    "with the plain attention (prefill and ring decode)",
                     ModelSettings(attn=A.AttnSettings(backend="naive")))
     ref_cache = {(tuple(by_rid[r].prompt), by_rid[r].max_new):
                  np.asarray(outs[r], np.int32) for r in rids}
@@ -1219,7 +1395,7 @@ def phase_greedy(cfg, params, trace, context, reps, calls):
         f"{list(agree['int8'].first_divergence)}; bf16 pool "
         f"{agree['none'].describe()}")
     s = max(len(by_rid[r].prompt) for r in rids)
-    return nfa, (1, s)
+    return nfa, (1, s), nda
 
 
 # ---------------------------------------------------------------------------
@@ -1298,7 +1474,7 @@ def phase_xlstm(phases):
              f"{ex.chunk_calls}: both paths must run")
     want = nm * (rep.prefill_calls + ex.chunk_calls)
     other = (paged_decode.launches, paged_prefill.launches,
-             flash_attention.launches)
+             flash_attention.launches, decode_attention.launches)
     if nml <= 0 or nml != want or ex.decode_mlstm_launches or any(other):
         fail(f"launch counters: mlstm {nml} (want {nm} x "
              f"({rep.prefill_calls} + {ex.chunk_calls}) = {want}), in decode "
@@ -1310,7 +1486,8 @@ def phase_xlstm(phases):
         f"{len(trace)} requests, {rep.prefill_tokens} prompt tokens "
         f"({rep.prefill_calls} whole-prompt prefill calls, {ex.chunk_calls} "
         f"chunk calls), {gen_tokens} generated tokens in {ex.decodes} decode "
-        f"ticks, {rep.ticks} ticks, {dt:.2f}s wall; allocator "
+        f"ticks, {rep.ticks} ticks, {dt:.2f}s wall ({tick_times(ex)}); "
+        f"allocator "
         f"{plan['pool_blocks']} blocks (nothing paged; capacity model "
         f"allows {plan['capacity_blocks']}); mlstm launches {nml} = {nm} x "
         f"({rep.prefill_calls} + {ex.chunk_calls}), 0 in decode ticks; "
@@ -1406,20 +1583,262 @@ def layer_times(cfg, params, w):
             ps, cfg, x[:, :1], state=ss, decode=True), 10),
     }
     pool = SS.init_paged_pool(cfg, LANES, 2, KV_BLOCK, KV_BLOCK, device=DEV)
-    ids = torch.arange(w, dtype=torch.int32, device=DEV)
-    sub = SS.gather_pool_lanes(pool, ids)
-    nbytes = sum(v.numel() * v.element_size()
-                 for P in sub["units"] + sub["tail"] for v in P.values())
-    g = time_ms(lambda: SS.gather_pool_lanes(pool, ids), 3)
-    sc = time_ms(lambda: SS.scatter_pool_lanes(pool, sub, ids), 3)
     log(f"[7] per block at width {w} (host ms, synchronised): " + ", ".join(
         f"{k} {v:.3f}" for k, v in t.items()) + f"; a step runs "
         f"{n_mixers(cfg, 'mlstm')} mLSTM + {n_mixers(cfg, 'slstm')} sLSTM "
-        f"blocks; "
-        f"gather of {w} lanes' state ({nbytes / 1e9:.3f} GB) {g:.3f} ms, "
-        f"scatter {sc:.3f} ms (each {nbytes / (g * 1e-3) / 1e12:.2f} / "
-        f"{nbytes / (sc * 1e-3) / 1e12:.2f} TB/s read + written)")
-    del pool, sub
+        f"blocks; " + lane_copies(pool, w))
+    del pool
+
+
+def lane_copies(pool, w):
+    """The gather and the scatter of w lanes' per-lane leaves of a paged
+    pool, each timed with CUDA events: a line for the log."""
+    ids = torch.arange(w, dtype=torch.int32, device=DEV)
+    sub = SS.gather_pool_lanes(pool, ids)
+    nbytes = sum(v.numel() * v.element_size()
+                 for P, Q in zip(sub["units"] + sub["tail"],
+                                 pool["units"] + pool["tail"])
+                 if P is not Q for v in P.values())
+    g = time_ms(lambda: SS.gather_pool_lanes(pool, ids), 3)
+    sc = time_ms(lambda: SS.scatter_pool_lanes(pool, sub, ids), 3)
+    del sub
+    return (f"gather of {w} lanes' per-lane leaves ({nbytes / 1e9:.3f} GB) "
+            f"{g:.3f} ms, scatter {sc:.3f} ms (each "
+            f"{nbytes / (g * 1e-3) / 1e12:.2f} / "
+            f"{nbytes / (sc * 1e-3) / 1e12:.2f} TB/s read + written)")
+
+
+# ---------------------------------------------------------------------------
+# Phases 9 and 10: ring/slot serving and windowed layers (gemma3-12b,
+# recurrentgemma-9b) at full width and depth
+# ---------------------------------------------------------------------------
+
+# the context the deployment reserves: gemma3-12b's local layers are rings
+# of 1024 and its global ones span the context; recurrentgemma-9b's
+# window-2048 layers are rings (a layer pages only when its ring spans the
+# context)
+RING_CONTEXT = 4096
+
+
+def serve_slots(cfg, params, trace, context, backend="kernel", record=False):
+    """The trace through the slot engine (continuous policy) and
+    TorchExecutor on LANES slots."""
+    cls = RecordingSlotExecutor if record else ClockedSlotExecutor
+    ex = cls(params, cfg, n_slots=LANES, context=context,
+             settings=SETTINGS[backend], device=DEV)
+    if not all(t.device.type == DEV.type for P in ex.pool["units"]
+               for t in P.values()):
+        fail("the slot pool is not on the card")
+    t0 = time.time()
+    rep = Engine(ex, LANES).run(trace)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    if len(rep.completions) != len(trace):
+        fail(f"{len(rep.completions)} of {len(trace)} requests completed")
+    for c in rep.completions:
+        if len(c.tokens) != trace[c.rid].max_new or \
+                not all(0 <= t < cfg.padded_vocab_size for t in c.tokens):
+            fail(f"request {c.rid}: bad token stream {c.tokens}")
+    return ex, rep, dt
+
+
+def plan_slots(cfg, trace, context):
+    """The capacity model's terms for the slot pool of LANES slots (every
+    attention layer a ring, nothing paged): the slots it allows under
+    HBM_BUDGET, and resident + transient at LANES slots, the transient the
+    larger of a decode tick's and a whole-prompt prefill's of the longest
+    prompt at the pool's width (the slot engine pads every prefill to
+    it)."""
+    plan = PR.MemoryPlan()
+    shape = ShapeConfig("serve", DECODE, context, LANES)
+    cap = PR.serving_capacity(cfg, shape, plan, WORKLOAD, MESH, hw=HW.H100,
+                              hbm_budget=HBM_BUDGET)
+    longest = max(len(r.prompt) for r in trace)
+    tra = max(PR.transient_bytes(cfg, shape, plan, WORKLOAD, MESH),
+              PR.prefill_transient_bytes(cfg, shape, plan, WORKLOAD, MESH,
+                                         prefill_tokens=LANES * longest,
+                                         reach=longest, width=LANES,
+                                         kernel="tiled"))
+    return {"capacity_slots": int(cap),
+            "resident": float(PR.resident_bytes(cfg, shape, plan, MESH)),
+            "transient": float(tra),
+            "caches": float(PR.cache_bytes_per_device(cfg, shape, plan,
+                                                      MESH))}
+
+
+def launch_counts():
+    return {m.__name__.rsplit(".", 1)[-1]: m.launches
+            for m in KERNEL_MODULES}
+
+
+def check_launches(tag, what, got, want):
+    """Every kernel's launch count equals `want` (0 where not named)."""
+    full = {k: want.get(k, 0) for k in got}
+    if got != full or not any(full.values()):
+        fail(f"[{tag}] {what}: launches {got}, want {full}")
+
+
+def phase_ring_model(arch, tag, seed, trace):
+    """Phase 9 (gemma3-12b) or 10 (recurrentgemma-9b): the trace through
+    the slot engine, then the compacted chunked paged engine; launch
+    counters zeroed just before and read just after each, counts asserted
+    exactly; memory beside the capacity model's prediction; the trace
+    again at one unit (plus the tail) through the kernels and through the
+    plain versions, on both engines. Returns what the `kernels` line
+    needs."""
+    cfg = get_config(arch)
+    left = torch.cuda.memory_allocated()
+    if left > 1e9:
+        fail(f"[{tag}] earlier phases left {left / 1e9:.3f} GB allocated: "
+             "the memory measured here would count it")
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    t0 = time.time()
+    params = init_params(gen, cfg, device=DEV)
+    torch.cuda.synchronize()
+    w_bytes = _bytes_of(params)
+    context = RING_CONTEXT
+    attn = [b for b in cfg.blocks() if b.is_attn]
+    n_paged = sum(SS.is_paged_block(b, context) for b in attn)
+    n_ring = len(attn) - n_paged
+    rings = sorted({b.cache_len(context) for b in attn
+                    if not SS.is_paged_block(b, context)})
+    log(f"[{tag}] {cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} layers "
+        f"({len(attn)} attention: {n_paged} paged at context {context}, "
+        f"{n_ring} per-lane rings of {rings}), {cfg.n_heads} heads / "
+        f"{cfg.n_kv_heads} kv heads x {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}: {w_bytes / 1e9:.3f} GB of "
+        f"weights made on the card from seed {seed} in "
+        f"{time.time() - t0:.1f}s")
+    lens = [len(r.prompt) for r in trace]
+    if min(lens) > CHUNK or max(lens) <= max(rings):
+        fail("the trace must hold whole prompts and prompts longer than "
+             "the rings")
+    out = {"cfg": cfg}
+
+    # (a) the slot engine: every attention layer a ring
+    slot = plan_slots(cfg, trace, context)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    ex, rep, dt = serve_slots(cfg, params, trace, context)
+    got = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(tag, "slot engine", got, {
+        "decode_attention": len(attn) * ex.decodes,
+        "flash_attention": len(attn) * rep.prefill_calls})
+    gen_tokens = sum(len(c.tokens) for c in rep.completions)
+    pool_bytes = _bytes_of(ex.pool)
+    log(f"[{tag}] (a) slot engine, {cfg.n_layers} layers: "
+        f"{len(rep.completions)}/{len(trace)} requests, {rep.prefill_tokens} "
+        f"prompt tokens in {rep.prefill_calls} whole-prompt prefill calls "
+        f"(each padded to {LANES} rows), {gen_tokens} generated tokens in "
+        f"{ex.decodes} decode ticks at width {LANES}, {rep.ticks} ticks, "
+        f"{dt:.2f}s wall; {tick_times(ex)}; ring decode launches "
+        f"{got['decode_attention']} = {len(attn)} x {ex.decodes}, flash "
+        f"{got['flash_attention']} = {len(attn)} x {rep.prefill_calls}")
+    pred = slot["resident"] + slot["transient"]
+    log(f"[{tag}] (a) WSMC slot plan: the capacity model allows "
+        f"{slot['capacity_slots']} slots under {HBM_BUDGET:.3e} B; at "
+        f"{LANES}: predicted resident {slot['resident'] / 1e9:.3f} GB (rings "
+        f"and states {slot['caches'] / 1e9:.3f} GB) + transient "
+        f"{slot['transient'] / 1e9:.3f} GB = {pred / 1e9:.3f} GB; measured: "
+        f"slot pool {pool_bytes / 1e9:.3f} GB, "
+        f"torch.cuda.max_memory_allocated() {peak / 1e9:.3f} GB (weights "
+        f"{w_bytes / 1e9:.3f} GB); measured / predicted = {peak / pred:.4f}")
+    out["slot"] = {"launches": got["decode_attention"]}
+    slot_streams = {c.rid: c.tokens for c in rep.completions}
+    del ex
+
+    # (b) the compacted chunked paged engine: full-context layers page,
+    # windowed ones keep per-lane rings
+    plan = plan_pool(cfg, trace, context, "none")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    ex, rep, dt = serve(cfg, params, trace, context, plan["pool_blocks"],
+                        "none")
+    got = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(tag, "paged engine", got, {
+        "paged_decode": n_paged * ex.decodes,
+        "paged_prefill": n_paged * ex.chunk_calls,
+        "decode_attention": n_ring * ex.decodes,
+        "flash_attention": len(attn) * rep.prefill_calls})
+    if rep.prefill_calls <= 0 or ex.chunk_calls <= 0:
+        fail(f"whole-prompt prefill calls {rep.prefill_calls}, chunk calls "
+             f"{ex.chunk_calls}: both paths must run")
+    same = sum(slot_streams[c.rid] == c.tokens for c in rep.completions)
+    shapes = {k: sorted(v) for k, v in ex._shapes.items()}
+    leaves = ([(P, 1) for P in ex.pool["units"]]
+              + [(P, 0) for P in ex.pool["tail"]])
+    lane_leaves = [P for P, ax in leaves if "kb" not in P]
+    if any(t.shape[ax] != LANES for P, ax in leaves if "kb" not in P
+           for t in P.values()):
+        fail("a per-lane pool leaf has no lane axis of the pool's width")
+    n_rec = sum(1 for P in lane_leaves if "pos" not in P)
+    log(f"[{tag}] (b) paged engine, {cfg.n_layers} layers: "
+        f"{len(rep.completions)}/{len(trace)} requests, {rep.prefill_tokens} "
+        f"prompt tokens ({rep.prefill_calls} whole-prompt prefill calls, "
+        f"{ex.chunk_calls} chunk calls), {ex.decodes} compacted decode "
+        f"ticks, {rep.ticks} ticks, {dt:.2f}s wall; {tick_times(ex)}; "
+        f"launches paged decode "
+        f"{got['paged_decode']} = {n_paged} x {ex.decodes}, paged prefill "
+        f"{got['paged_prefill']} = {n_paged} x {ex.chunk_calls}, ring decode "
+        f"{got['decode_attention']} = {n_ring} x {ex.decodes}, flash "
+        f"{got['flash_attention']} = {len(attn)} x {rep.prefill_calls}; "
+        f"audit clean; {same}/{len(trace)} streams equal to the slot "
+        f"engine's; pool: {len(leaves) - len(lane_leaves)} paged leaf "
+        f"groups, {len(lane_leaves) - n_rec} per-lane rings, {n_rec} "
+        f"per-lane recurrent states (unit leaves stacked over "
+        f"{cfg.repeats} repeats); shapes {shapes}")
+    pred = plan["resident"] + plan["transient"]
+    lane = LANES * PR.lane_bytes_per_device(
+        cfg, dataclasses.replace(ShapeConfig("serve", DECODE, context, LANES),
+                                 global_batch=LANES),
+        PR.MemoryPlan(kv_block_size=KV_BLOCK), MESH)
+    log(f"[{tag}] (b) WSMC paged plan: pool {plan['pool_blocks']} blocks "
+        f"(capacity model allows {plan['capacity_blocks']}); predicted "
+        f"resident {plan['resident'] / 1e9:.3f} GB (per-lane rings and "
+        f"states {lane / 1e9:.3f} GB = {LANES} lanes x "
+        f"{lane / LANES / 1e9:.4f} GB) + transient "
+        f"{plan['transient'] / 1e9:.3f} GB = {pred / 1e9:.3f} GB; "
+        f"torch.cuda.max_memory_allocated() {peak / 1e9:.3f} GB; measured / "
+        f"predicted = {peak / pred:.4f}")
+    log(f"[{tag}] (b) lane copies of a compacted step at width {LANES}: "
+        + lane_copies(ex.pool, LANES))
+    out["paged"] = {"launches": got["decode_attention"]}
+    del ex
+    torch.cuda.empty_cache()
+
+    # the trace at one unit (and the tail), kernels against plain versions
+    t0 = time.time()
+    phase_identity(cfg, params, trace, context, units=1, tag=tag, slots=True)
+    phase_identity(cfg, params, trace, context, units=1, tag=tag)
+    log(f"[{tag}] {depth_variant(cfg, 1).n_layers}-layer kernel-vs-plain "
+        f"runs {time.time() - t0:.2f}s")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def make_gemma3_trace(cfg):
+    """16 requests: whole prompts (up to CHUNK) and chunked ones up to 2048,
+    longer than the local rings of 1024 (they wrap during prefill); 1010
+    tokens plus 16-32 new ones wrap them at decode."""
+    return synthetic_trace(16, vocab_size=cfg.vocab_size, seed=SEED + 9,
+                           prompt_lens=(64, 200, 256, 520, 1010, 2048),
+                           gen_lens=(16, 24, 32), mean_interarrival=2.0)
+
+
+def make_rgemma_trace(cfg):
+    """12 requests: whole prompts (up to CHUNK) and chunked ones up to
+    3000, longer than the window-2048 rings (they wrap during prefill);
+    2030 tokens plus 24-32 new ones wrap them at decode."""
+    return synthetic_trace(12, vocab_size=cfg.vocab_size, seed=SEED + 11,
+                           prompt_lens=(64, 200, 256, 700, 1500, 2030,
+                                        3000),
+                           gen_lens=(24, 32), mean_interarrival=2.0)
 
 
 # ---------------------------------------------------------------------------
@@ -1449,11 +1868,6 @@ REL_GRAD_BOUND = 0.05
 # the loss apart (10.066322 / 10.066306, NVIDIA H100 80GB HBM3, 700.00 W).
 # A kernel that attends to wrong rows moves the loss by far more.
 REL_LOSS_BOUND = 1e-4
-
-
-def _zero_launches():
-    for mod in KERNEL_MODULES:
-        mod.launches = 0
 
 
 def _bytes_of(tree):
@@ -1488,8 +1902,7 @@ def train_plan(cfg, params, pipe, kind, remat, micro, steps):
         n_steps=steps, on_metrics=on_metrics)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {m.__name__.rsplit(".", 1)[-1]: m.launches
-                for m in KERNEL_MODULES}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     opt_bytes = _bytes_of(st)
     del st
@@ -1502,7 +1915,7 @@ def train_plan(cfg, params, pipe, kind, remat, micro, steps):
     if (launches["flash_attention"] != want_f
             or launches["flash_attention_bwd"] != want_b
             or any(launches[k] for k in ("paged_decode", "paged_prefill",
-                                         "mlstm_scan"))):
+                                         "mlstm_scan", "decode_attention"))):
         fail(f"training plan {kind}/{remat}/{micro}: launches {launches}, "
              f"want flash forward {want_f} (= {cfg.n_layers} x {steps} x "
              f"{micro}{' x 2, recomputed' if want_f > want_b else ''}), "
@@ -1910,6 +2323,82 @@ def mlstm_row(xl, err):
             "kernel_operations": kflops}
 
 
+def time_ring_decode(cfg, gen, b, L):
+    """Ring decode at [b, L] rings of cfg's heads, bf16, every slot filled
+    and visible (the rings have wrapped): the kernel, the plain version,
+    and scaled_dot_product_attention with a boolean position mask and
+    enable_gqa on the same inputs (the one PyTorch call that computes the
+    same function; timed here, never called by the port); the bytes and
+    operations the function needs for these inputs."""
+    K, G, hd = cfg.n_kv_heads, cfg.q_group, cfg.resolved_head_dim
+    bf = torch.bfloat16
+    ends = [L - 1 + 977 * i for i in range(b)]
+    cpos = ring_positions(ends, L)
+    positions = torch.tensor(ends, dtype=torch.int32, device=DEV)
+    q = torch.randn((b, K, G, hd), generator=gen, device=DEV).to(bf)
+    k = torch.randn((b, L, K, hd), generator=gen, device=DEV).to(bf)
+    v = torch.randn((b, L, K, hd), generator=gen, device=DEV).to(bf)
+    args = (q, k, v, cpos, positions)
+    ms = time_ms(lambda: decode_attention.decode_attention_fwd(*args), 20)
+    plain = time_ms(lambda: decode_attention.decode_attention_plain(*args),
+                    5)
+    vis = A._mask(positions[:, None], cpos, BlockSpec())[:, 0]
+    qt = q.reshape(b, K * G, 1, hd)
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+    mask = vis[:, None, None, :]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    lib = time_ms(sdpa, 20)
+    dev = float((sdpa().reshape(b, K, G, hd).float()
+                 - decode_attention.decode_attention_plain(*args).float()
+                 ).abs().max())
+    pairs = int(vis.sum())
+    # K and V of every slot read once, positions read once, q read and o
+    # written once
+    nbytes = (2 * k.numel() * 2 + cpos.numel() * 4 + 2 * q.numel() * 2
+              + positions.numel() * 4)
+    flops = 4.0 * hd * G * K * pairs          # q.k and p.v per head
+    return ms, plain, lib, dev, nbytes, flops, pairs
+
+
+def ring_row(g3, rg, err):
+    """The `kernels` line's row of kernel 6, ring decode, timed at the
+    largest shape on its path: gemma3-12b's slot-mode global ring
+    [8, 4096, 8, 256]."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    cfg = g3["cfg"]
+    ms, plain, lib, dev, nbytes, flops, pairs = time_ring_decode(
+        cfg, gen, LANES, RING_CONTEXT)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    local = [b.cache_len(RING_CONTEXT) for b in cfg.blocks()
+             if b.window is not None][0]
+    ms_local, _, lib_local, _, nb_local, _, _ = time_ring_decode(
+        cfg, gen, LANES, local)
+    row = {"name": "decode_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ring_decode.cu",
+           "replaces": "src/repro/kernels/decode_attention.py:84",
+           "launches": g3["slot"]["launches"], "max_abs_err": err,
+           "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": lib, "library_max_abs_dev": dev,
+           "shape": {"lanes": LANES, "ring": RING_CONTEXT,
+                     "kv_heads": cfg.n_kv_heads, "group": cfg.q_group,
+                     "head_dim": cfg.resolved_head_dim},
+           "bytes": nbytes, "operations": flops, "visible_pairs": pairs,
+           "local_ring": {"ring": local, "ms": ms_local,
+                          "library_ms": lib_local,
+                          "bound_ms": nb_local / PEAK_BYTES_PER_S * 1e3},
+           "launches_paged_gemma3": g3["paged"]["launches"]}
+    if rg is not None:
+        row["launches_slot_recurrentgemma"] = rg["slot"]["launches"]
+        row["launches_paged_recurrentgemma"] = rg["paged"]["launches"]
+    return row
+
+
 def run_mistral(phases, errs):
     """Phases 3-6 on mistral-nemo-12b; returns its kernels' rows."""
     cfg = get_config("mistral-nemo-12b")
@@ -1951,12 +2440,12 @@ def run_mistral(phases, errs):
     return kernel_rows(cfg, counts, shapes, errs, greedy)
 
 
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10}
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run (1 always runs)")
     args = ap.parse_args()
     phases = {int(x) for x in args.phases.split(",")}
@@ -1966,7 +2455,8 @@ def main():
     smi = phase_device()
     errs = {"paged_decode": None, "paged_prefill": None,
             "flash_attention": None, "flash_attention_train": None,
-            "flash_attention_bwd": None, "mlstm_scan": None}
+            "flash_attention_bwd": None, "mlstm_scan": None,
+            "decode_attention": None}
     if 2 in phases:
         t0 = time.time()
         errs = phase_kernels()
@@ -1986,6 +2476,22 @@ def main():
         tr = phase_train()
         log(f"[8] phase 8 {time.time() - t0:.2f}s")
         rows += train_rows(tr, errs)
+        torch.cuda.empty_cache()
+    g3 = rg = None
+    if 9 in phases:
+        t0 = time.time()
+        cfg = get_config("gemma3-12b")
+        g3 = phase_ring_model("gemma3-12b", 9, SEED + 9,
+                              make_gemma3_trace(cfg))
+        log(f"[9] phase 9 {time.time() - t0:.2f}s")
+    if 10 in phases:
+        t0 = time.time()
+        cfg = get_config("recurrentgemma-9b")
+        rg = phase_ring_model("recurrentgemma-9b", 10, SEED + 10,
+                              make_rgemma_trace(cfg))
+        log(f"[10] phase 10 {time.time() - t0:.2f}s")
+    if g3 is not None:
+        rows.append(ring_row(g3, rg, errs["decode_attention"]))
     for r in rows:
         lib = ("" if r["library_ms"] is None else
                f", library {r['library_ms']:.4f} ms")

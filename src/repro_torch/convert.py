@@ -87,21 +87,22 @@ def opt_state_from_jax(numpy_tree, params, ocfg):
 
 
 # payload leaves cast to `fp_dtype` (pool "kb"/"vb", ring "k"/"v"), and
-# per-lane leaves the reference keeps in bf16 (conv tails of recurrent
-# blocks); every other floating leaf (scales, recurrent states) is f32
+# per-lane leaves the reference keeps in bf16 (conv tails of the mLSTM and
+# RG-LRU blocks); every other floating leaf (scales, recurrent states) is f32
 _POOL_FLOAT = ("kb", "vb", "k", "v")
 _POOL_BF16 = ("conv",)
 
 
 def pool_from_jax(numpy_tree, device="cuda", fp_dtype=torch.bfloat16):
-    """A paged pool or a ring cache tree of numpy arrays (the reference
-    package's `init_paged_pool` / `init_cache` layouts) -> this package's
-    tensors on `device` (default "cuda"; raises without a CUDA device).
-    Integer leaves (codes, positions) keep their dtype; fp payload leaves
-    "kb"/"vb" (pool) and "k"/"v" (ring) are cast to `fp_dtype` (bf16
+    """A paged pool (its per-lane rings and states included), a slot pool
+    or a ring cache tree of numpy arrays (the reference package's
+    `init_paged_pool` / `init_slot_pool` / `init_cache` layouts) -> this
+    package's tensors on `device` (default "cuda"; raises without a CUDA
+    device). Integer leaves (codes, positions) keep their dtype; fp payload
+    leaves "kb"/"vb" (pool) and "k"/"v" (ring) are cast to `fp_dtype` (bf16
     payloads arrive upcast to float32); the per-lane "conv" tails of
     recurrent blocks to bf16; scale leaves and the recurrent states (mLSTM
-    C, n, m; sLSTM c, n, h, m) stay float32."""
+    C, n, m; sLSTM c, n, h, m; RG-LRU h) stay float32."""
     device = require_device(device)
 
     def conv(tree):

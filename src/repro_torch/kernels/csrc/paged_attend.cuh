@@ -16,6 +16,10 @@
 //      query row updates the running (max, sum) in f32;
 //   4. rescales and accumulates p.V into registers (NACC floats a thread,
 //      each thread owning HPT columns of the head for a set of rows).
+// With no block table (`tables` null) the same body reads per-lane rings
+// [b, L, K, hd] by pointer arithmetic (ring decode). Tiles are skipped only
+// on what their own positions show, never on their index: a ring's slots
+// are not in position order.
 // Nothing of size [rows, context] and no fp copy of a quantised pool ever
 // reaches device memory. Everything is f32 on CUDA cores: no tensor cores
 // and no asynchronous copies yet.
@@ -45,8 +49,9 @@ struct AttendArgs {
     const void* vpool;
     const float* kscale;     // [n_blocks, bs, K] or null
     const float* vscale;
-    const int* pool_pos;     // [n_blocks, bs]
-    const int* tables;       // [b, mB]
+    const int* pool_pos;     // [n_blocks, bs] ([b, L] for a ring)
+    const int* tables;       // [b, mB], or null: per-lane rings [b, L, K,
+                             // hd] read as bs = L, mB = 1
     const int* positions;    // [b, C]
     float* bm;               // [b, mB, K, G] or null (decode only, C == 1)
     float* bl;
@@ -301,7 +306,7 @@ paged_attend_kernel(AttendArgs a) {
     __syncthreads();
 
     const int total_rows = a.mB * bs;
-    const int* tbl = a.tables + (size_t)bi * a.mB;
+    const int* tbl = a.tables ? a.tables + (size_t)bi * a.mB : nullptr;
     int t_begin = 0, t_end = total_rows;
     if (split) {
         int tiles = (total_rows + TR - 1) / TR;
@@ -315,12 +320,16 @@ paged_attend_kernel(AttendArgs a) {
         for (int r = tid; r < TR; r += PA_THREADS) {
             int R = t0 + r;
             int row = -1, cp = -1;
-            if (R < total_rows) {
+            if (R < total_rows && tbl != nullptr) {
                 int ent = tbl[R / bs];
                 if (ent >= 0) {
                     row = ent * bs + (R % bs);
                     cp = a.pool_pos[row];
                 }
+            } else if (R < total_rows) {
+                // a per-lane ring [b, L] (no table): row R of lane bi
+                row = bi * total_rows + R;
+                cp = a.pool_pos[row];
             }
             row_s[r] = row;
             cp_s[r] = cp;

@@ -15,6 +15,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.decode_attention import (  # noqa: F401
+    decode_attention_fwd, decode_attention_plain,
+)
 from repro_torch.kernels.flash_attention import (  # noqa: F401
     flash_attention_fwd, flash_attention_plain,
 )
@@ -32,6 +35,17 @@ from repro_torch.kernels.paged_prefill import (  # noqa: F401
 )
 
 MLSTM_BACKENDS = ("kernel", "naive")
+
+
+def decode_attention(q, k_cache, v_cache, cache_pos, positions, *,
+                     window: Optional[int] = None,
+                     chunk: Optional[int] = None, kv_block: int = 512):
+    """Ring decode: q [b,K,G,hd]; caches [b,L,K,hd]; cache_pos [b,L];
+    positions [b] -> [b,K,G,hd] (decode_attention_fwd: the CUDA kernel for
+    a CUDA tensor, its plain version for a CPU tensor)."""
+    return decode_attention_fwd(q, k_cache, v_cache, cache_pos, positions,
+                                window=window, chunk=chunk,
+                                kv_block=kv_block)
 
 
 def flash_attention(q, k, v, qpos, kpos, *, window: Optional[int] = None,

@@ -14,16 +14,19 @@ Paths:
               its K/V into a paged pool through the block tables.
   decode    — one token per lane against a paged pool (block tables) or a
               per-lane ring cache.
-  chunk     — a prompt chunk appended to a paged pool and attended over
-              history + chunk.
+  chunk     — a prompt chunk appended to a paged pool or a per-lane ring
+              and attended over history + chunk.
 
-Not ported yet (raises NotImplementedError naming what lifts it): a chunk
-appended to a per-lane ring cache (the ring/slot slice).
+Per-lane rings (windowed layers, the slot pool, greedy generation): ring
+decode goes through the ring decode kernel (backend "kernel") or the dense
+softmax; a chunk appended to a ring attends over concat(ring, chunk) in
+plain torch, as the reference does. Ring writes drop inert and padding rows
+on the device (`ring_write`): no host sync.
 
 Caches are updated IN PLACE: where the reference package returns new arrays,
-the ring write at decode, `write_prompt_kv`, `_paged_write`,
-`_paged_write_chunk` and the kernels store into the cache's own tensors and
-hand the same dict back.
+`ring_write`, `write_prompt_kv`, `_paged_write`, `_paged_write_chunk`, the
+whole-prompt write of a pool's ring and the kernels store into the cache's
+own tensors and hand the same dict back.
 """
 from __future__ import annotations
 
@@ -128,17 +131,24 @@ def _seq_attention(q, k, v, qpos, kpos, blk: BlockSpec,
 # Ring-buffer KV cache
 # ---------------------------------------------------------------------------
 
+def cache_shapes(cfg: ModelConfig, blk: BlockSpec, batch: int,
+                 context: int, dtype=torch.bfloat16):
+    """{leaf: (shape, dtype)} of a per-lane ring of cache_len(context)
+    slots."""
+    L = blk.cache_len(context)
+    shape = (batch, L, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": (shape, dtype), "v": (shape, dtype),
+            "pos": ((batch, L), torch.int32)}
+
+
 def cache_init(cfg: ModelConfig, blk: BlockSpec, batch: int, context: int,
                dtype=torch.bfloat16, device="cuda"):
     """An empty per-lane ring of cache_len(context) slots (pos -1)."""
-    L = blk.cache_len(context)
-    hd = cfg.resolved_head_dim
-    shape = (batch, L, cfg.n_kv_heads, hd)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full((batch, L), -1, dtype=torch.int32, device=device),
-    }
+    return {k: (torch.full(sh, -1, dtype=dt, device=device)
+                if dt == torch.int32 else
+                torch.zeros(sh, dtype=dt, device=device))
+            for k, (sh, dt) in cache_shapes(cfg, blk, batch, context,
+                                            dtype).items()}
 
 
 def _cache_from_prefill(k, v, positions, blk: BlockSpec, context: int):
@@ -167,22 +177,73 @@ def _cache_from_prefill(k, v, positions, blk: BlockSpec, context: int):
     }
 
 
-def _ring_decode(q, cache, blk: BlockSpec, pos1, k1, v1):
-    """One decode step against a per-lane ring cache: write k1/v1 [b,K,hd]
-    at slot pos1 % L IN PLACE, then attend over the ring. Inert rows (pos1
-    < 0) drop their write: only the live rows are selected for it."""
+def ring_write(cache, positions, k, v):
+    """Write rows k/v [b, C, K, hd] at positions [b, C] (-1 = padding) into
+    the per-lane ring IN PLACE at slot = pos % L, keeping only the
+    positions inside each row's final window (pos > row's last - L: a chunk
+    longer than the ring would otherwise wrap onto itself). Padding and
+    dropped entries are redirected on the device, with no host sync: in a
+    row with a kept entry they rewrite the row's last entry's slot with that
+    entry's own values; in a row with none they rewrite slot 0 with what it
+    holds. Every slot written twice gets one value, so the order of
+    index_put_'s writes does not matter."""
+    b, C = positions.shape
     L = cache["pos"].shape[1]
-    rows = torch.nonzero(pos1 >= 0).flatten()
-    slot = torch.remainder(pos1[rows], L).long()
-    cache["k"][rows, slot] = k1[rows].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v1[rows].to(cache["v"].dtype)
-    cache["pos"][rows, slot] = pos1[rows].to(cache["pos"].dtype)
-    return _decode_attend(q, cache, blk, pos1)
+    pos = positions.long()
+    valid = pos >= 0
+    masked = torch.where(valid, pos, torch.full_like(pos, -1))
+    row_end, last = masked.max(dim=1, keepdim=True)              # [b, 1]
+    keep = valid & (pos > row_end - L)
+    has = row_end >= 0
+    bidx = torch.arange(b, device=pos.device)[:, None].expand(b, C)
+    slot = torch.where(keep, torch.remainder(pos, L),
+                       torch.where(has, torch.remainder(row_end, L),
+                                   torch.zeros_like(pos)))
+    for name, x in (("k", k), ("v", v)):
+        t = cache[name]
+        x = x.to(t.dtype)
+        fill = torch.where(
+            has[:, :, None, None],
+            torch.gather(x, 1, last[:, :, None, None].expand(
+                -1, -1, *x.shape[2:])),
+            t[:, :1])                                       # [b, 1, K, hd]
+        t.index_put_((bidx, slot), torch.where(keep[:, :, None, None], x,
+                                               fill))
+    old0 = cache["pos"][:, :1].long()
+    cache["pos"].index_put_((bidx, slot), torch.where(
+        keep, pos, torch.where(has, row_end, old0)).to(cache["pos"].dtype))
+    return cache
+
+
+_PLAIN = AttnSettings(backend="naive")
+
+
+def _ring_decode(q, cache, blk: BlockSpec, pos1, k1, v1,
+                 settings: AttnSettings = _PLAIN):
+    """One decode step against a per-lane ring cache: write k1/v1 [b,K,hd]
+    at slot pos1 % L IN PLACE (inert rows, pos1 < 0, drop their write on
+    the device: ring_write), then attend over the ring (_decode_attend)."""
+    ring_write(cache, pos1[:, None], k1[:, None], v1[:, None])
+    return _decode_attend(q, cache, blk, pos1, settings=settings)
 
 
 def _decode_attend(q, cache, blk: BlockSpec, positions,
-                   return_probs: bool = False):
-    """q [b,1,K,G,hd], cache k/v [b,L,K,hd]; positions [b]."""
+                   return_probs: bool = False,
+                   settings: AttnSettings = _PLAIN):
+    """q [b,1,K,G,hd], cache k/v [b,L,K,hd]; positions [b]. Backend
+    "kernel" goes through kernels.ops.decode_attention (the ring decode
+    kernel on the card: an inert lane gives zeros); "naive" is the dense
+    masked softmax (an inert lane gives the mean of its ring), which also
+    returns the probabilities when asked."""
+    if settings.backend == "kernel":
+        if return_probs:
+            raise ValueError("the ring decode kernel returns no "
+                             "probabilities: use backend 'naive'")
+        from repro_torch.kernels import ops as kops
+        o = kops.decode_attention(q[:, 0], cache["k"], cache["v"],
+                                  cache["pos"], positions.to(torch.int32),
+                                  window=blk.window, chunk=blk.chunk)
+        return o[:, None]
     hd = q.shape[-1]
     scale = 1.0 / np.sqrt(hd)
     s = layers.einsum_f32("bqkgh,bskh->bkgqs", q, cache["k"]) * scale
@@ -408,18 +469,17 @@ def _scales(cache):
 
 def _chunk_append(q, k, v, cache, blk: BlockSpec, positions, block_tables,
                   settings: AttnSettings = AttnSettings()):
-    """Chunked prefill: append a prompt chunk to an EXISTING paged cache and
+    """Chunked prefill: append a prompt chunk to an EXISTING cache and
     attend over history + chunk — exactly the chunk's slice of a full
     prefill, so interleaving chunks with decode ticks changes scheduling but
-    never tokens. backend "kernel" goes through kernels.ops (write kernel +
-    tiled flash-attend kernel on the card: no [chunk, context] score matrix
-    and no fp copy of a quantised pool reaches device memory); "naive"
-    scatters through the block table and attends over the gathered virtual
-    ring. Either way the cache's tensors are updated in place."""
+    never tokens. Paged layers: backend "kernel" goes through kernels.ops
+    (write kernel + tiled flash-attend kernel on the card: no [chunk,
+    context] score matrix and no fp copy of a quantised pool reaches device
+    memory); "naive" scatters through the block table and attends over the
+    gathered virtual ring. Per-lane rings: _ring_chunk_append on either
+    backend. Either way the cache's tensors are updated in place."""
     if not is_paged_cache(cache):
-        raise NotImplementedError(
-            "chunk append into a per-lane ring cache: needs the ring/slot "
-            "slice (decode_attention_fwd, windowed layers)")
+        return _ring_chunk_append(q, k, v, cache, blk, positions), cache
     assert block_tables is not None, \
         "paged cache needs block_tables for chunked prefill"
     ks, vs = _scales(cache)
@@ -436,6 +496,23 @@ def _chunk_append(q, k, v, cache, blk: BlockSpec, positions, block_tables,
         positions, window=blk.window, chunk=blk.chunk,
         k_scales=ks, v_scales=vs)
     return o, cache
+
+
+def _ring_chunk_append(q, k, v, cache, blk: BlockSpec, positions):
+    """A prompt chunk appended to per-lane rings: attend over concat(ring,
+    chunk) (plain dense softmax, as the reference's; its [C, L + C] score
+    tile is small next to the chunk's projections), then write back only
+    the positions inside each row's final window, padding dropped
+    (ring_write), IN PLACE."""
+    valid = positions >= 0
+    kcat = torch.cat([cache["k"], k.to(cache["k"].dtype)], dim=1)
+    vcat = torch.cat([cache["v"], v.to(cache["v"].dtype)], dim=1)
+    pcat = torch.cat([cache["pos"], torch.where(
+        valid, positions, torch.full_like(positions, -1)).to(
+            cache["pos"].dtype)], dim=1)
+    o = _sdpa(q, kcat, vcat, _mask(positions, pcat, blk))
+    ring_write(cache, positions, k, v)
+    return o
 
 
 def _paged_decode(q, cache, blk: BlockSpec, pos1, k1, v1, block_tables,
@@ -512,7 +589,8 @@ def attn_apply(params, cfg: ModelConfig, blk: BlockSpec, x, positions,
             if mass is not None:
                 aux["attn_mass"] = mass
         else:
-            o = _ring_decode(q, cache, blk, pos1, k[:, 0], v[:, 0])
+            o = _ring_decode(q, cache, blk, pos1, k[:, 0], v[:, 0],
+                             settings)
     elif isinstance(cache, dict) and not whole_prompt:
         # chunked prefill: a cache on the sequence path means "append this
         # chunk to what the earlier chunks already wrote"
@@ -522,10 +600,13 @@ def attn_apply(params, cfg: ModelConfig, blk: BlockSpec, x, positions,
         o = _seq_attention(q, k, v, positions, positions, blk, settings)
         if cache == "build":
             new_cache = _cache_from_prefill(k, v, positions, blk, context)
+        elif cache is not None and not is_paged_cache(cache):
+            # a per-lane ring of the pool (a windowed layer): the ring this
+            # prompt fills replaces the lane's, in place
+            ring = _cache_from_prefill(k, v, positions, blk, context)
+            for name, t in cache.items():
+                t.copy_(ring[name])
         elif cache is not None:
-            if not is_paged_cache(cache):
-                raise ValueError("whole-prompt prefill writes a paged pool "
-                                 "or builds a ring (cache='build')")
             assert block_tables is not None, \
                 "paged cache needs block_tables for whole-prompt prefill"
             write_prompt_kv(cache, block_tables, k, v, positions)

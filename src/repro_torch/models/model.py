@@ -7,12 +7,13 @@ that axis, this package runs a Python loop over the layers and hands each
 layer a view `leaf[r]` of the stacked tensors; caches are updated in place
 through those views.
 
-Ported: attention mixers with a dense MLP, and xLSTM's mLSTM and sLSTM
-mixers; the sequence forward without a cache (differentiable: the training
-path, with an optional remat wrapper around each unit repeat), the prefill
-that builds ring caches and recurrent states (`build_cache`) or writes a
-paged pool, and decode and chunk-append forwards against a cache. RG-LRU
-and MoE raise NotImplementedError naming what lifts them.
+Ported: attention mixers with a dense MLP, xLSTM's mLSTM and sLSTM mixers
+and Griffin's RG-LRU; the sequence forward without a cache
+(differentiable: the training path, with an optional remat wrapper around
+each unit repeat), the prefill that builds ring caches and recurrent states
+(`build_cache`) or writes a paged pool (and its per-lane rings and
+states), and decode and chunk-append forwards against a cache. MoE raises
+NotImplementedError naming what lifts it.
 """
 from __future__ import annotations
 
@@ -88,9 +89,7 @@ def mlp_apply(params, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 
 def _check_block(blk: BlockSpec):
-    if blk.mixer == RGLRU:
-        raise NotImplementedError(recurrent.RGLRU_SLICE)
-    if blk.mixer not in (ATTN, MLSTM, SLSTM):
+    if blk.mixer not in (ATTN, MLSTM, SLSTM, RGLRU):
         raise ValueError(blk.mixer)
     if blk.mlp == MLP_MOE:
         raise NotImplementedError("MoE MLP: needs the MoE slice")
@@ -99,7 +98,7 @@ def _check_block(blk: BlockSpec):
 
 
 _MIXER_INIT = {ATTN: attention.attn_init, MLSTM: recurrent.mlstm_init,
-               SLSTM: recurrent.slstm_init}
+               SLSTM: recurrent.slstm_init, RGLRU: recurrent.rglru_init}
 
 
 def block_init(gen, cfg: ModelConfig, blk: BlockSpec, device,
@@ -119,6 +118,8 @@ def state_shapes(cfg: ModelConfig, blk: BlockSpec, batch: int):
         return recurrent.mlstm_state_shapes(cfg, batch)
     if blk.mixer == SLSTM:
         return recurrent.slstm_state_shapes(cfg, batch)
+    if blk.mixer == RGLRU:
+        return recurrent.rglru_state_shapes(cfg, batch)
     raise ValueError(f"{blk.mixer} keeps no recurrent state")
 
 
@@ -135,7 +136,7 @@ def block_cache_init(cfg: ModelConfig, blk: BlockSpec, batch: int,
 def _recurrent_apply(params, cfg: ModelConfig, blk: BlockSpec, x, positions,
                      cache, decode: bool, building: bool,
                      settings: "ModelSettings"):
-    """An mLSTM / sLSTM mixer: (delta, state). Prefill starts from a zero
+    """An mLSTM / sLSTM / RG-LRU mixer: (delta, state). Prefill starts from a zero
     state. A cache passed in receives the new state IN PLACE and is
     returned; at decode only rows with position >= 0 take it (full-width
     ticks carry INERT rows — empty lanes, lanes mid-chunk-prefill — whose
@@ -148,8 +149,11 @@ def _recurrent_apply(params, cfg: ModelConfig, blk: BlockSpec, x, positions,
             params, cfg, x, state=state, decode=decode,
             backend=settings.mlstm_backend, chunk=settings.mlstm_chunk,
             positions=positions)
-    else:
+    elif blk.mixer == SLSTM:
         delta, new = recurrent.slstm_apply(params, cfg, x, state=state,
+                                           decode=decode, positions=positions)
+    else:
+        delta, new = recurrent.rglru_apply(params, cfg, x, state=state,
                                            decode=decode, positions=positions)
     if cache is None or new is None:
         return delta, new

@@ -1,4 +1,5 @@
-"""Recurrent sequence mixers of xLSTM: the mLSTM and the sLSTM block.
+"""Recurrent sequence mixers: xLSTM's mLSTM and sLSTM blocks, and Griffin's
+RG-LRU block (recurrentgemma-9b).
 
 - mLSTM uses the chunkwise-parallel form (kernels/ops.mlstm_scan: the
   hand-written CUDA scan on the card, or its plain version): dense products
@@ -6,14 +7,13 @@
 - sLSTM has a genuinely nonlinear recurrence (h feeds the gates) and runs as
   a Python loop over time steps, as the reference package's lax.scan does
   (no TPU kernel there, so none here).
+- RG-LRU's gated diagonal recurrence is linear in h: a log-step associative
+  scan in plain torch (the reference package has no kernel for it either).
 
 The mixers are functional like the reference package's: they return the
 residual increment and a NEW state dict (None without a state), and never
 write the state passed in; models.model.block_apply copies the new state
 into the cache in place.
-
-Not ported: Griffin's RG-LRU (recurrentgemma-9b); its functions raise
-NotImplementedError naming the slice that lifts it.
 """
 from __future__ import annotations
 
@@ -284,20 +284,121 @@ def slstm_apply(params, cfg: ModelConfig, x, state=None, decode: bool = False,
 
 
 # ===========================================================================
-# RG-LRU block (Griffin / RecurrentGemma): not ported
+# RG-LRU block (Griffin / RecurrentGemma)
 # ===========================================================================
 
-RGLRU_SLICE = ("RG-LRU mixer (recurrentgemma-9b): needs the ring/slot slice "
-               "(its window-2048 attention needs per-lane rings)")
+def rglru_init(gen, cfg: ModelConfig, device, repeats: int = 0):
+    """The reference package's leaves and dtypes: projections and the conv
+    in cfg.param_dtype; the diagonal gates and a_param in f32. a_param is
+    drawn as the reference draws it, log(expm1(-log(u) / 8)) with u uniform
+    in [0.25, 0.75], so that a = exp(-8 softplus(a_param) r) = u^r."""
+    d = cfg.d_model
+    w = cfg.lru_width or d
+    dt = layers.torch_dtype(cfg.param_dtype)
+    f32 = torch.float32
+    u = torch.rand(_stacked((w,), repeats), generator=gen, dtype=f32,
+                   device=device) * 0.5 + 0.25
+    return {
+        "norm": layers.rmsnorm_init(d, dt, device, repeats),
+        "w_x": layers.dense_init(gen, d, w, dt, device, repeats),
+        "w_y": layers.dense_init(gen, d, w, dt, device, repeats),
+        "conv": layers.conv1d_init(cfg.conv_width, w, dt, device, repeats),
+        "gate_r": torch.zeros(_stacked((w,), repeats), dtype=f32,
+                              device=device),
+        "gate_i": torch.zeros(_stacked((w,), repeats), dtype=f32,
+                              device=device),
+        "a_param": torch.log(torch.expm1(-torch.log(u) / 8.0)),
+        "w_out": layers.dense_init(gen, w, d, dt, device, repeats),
+    }
 
 
-def rglru_init(*args, **kwargs):
-    raise NotImplementedError(RGLRU_SLICE)
+def rglru_state_shapes(cfg: ModelConfig, batch: int) -> Shapes:
+    """A lane's RG-LRU state: h in f32, the conv tail in bf16."""
+    w = cfg.lru_width or cfg.d_model
+    return {"h": ((batch, w), torch.float32),
+            "conv": ((batch, cfg.conv_width - 1, w), torch.bfloat16)}
 
 
-def rglru_state_init(*args, **kwargs):
-    raise NotImplementedError(RGLRU_SLICE)
+def rglru_state_init(cfg: ModelConfig, batch: int, device):
+    return _zeros(rglru_state_shapes(cfg, batch), device)
 
 
-def rglru_apply(*args, **kwargs):
-    raise NotImplementedError(RGLRU_SLICE)
+def linear_scan(a, b):
+    """h_t = a_t h_{t-1} + b_t from h_{-1} = 0 along axis 1, as a
+    log-step (Hillis-Steele) associative scan: ceil(log2 s) passes of
+    elementwise products over the whole sequence, no loop over steps. The
+    operator combines an earlier step (a1, b1) with a later (a2, b2) into
+    (a1 a2, a2 b1 + b2); after the pass at distance d, element t holds the
+    composition of steps max(0, t - 2d + 1)..t."""
+    s = a.shape[1]
+    d = 1
+    while d < s:
+        a_prev, b_prev = a[:, :-d], b[:, :-d]
+        b = torch.cat([b[:, :d], a[:, d:] * b_prev + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a_prev], dim=1)
+        d *= 2
+    return b
+
+
+def rglru_apply(params, cfg: ModelConfig, x, state=None, decode: bool = False,
+                positions=None):
+    """Griffin recurrent block: gelu branch x RG-LRU branch -> out proj.
+    x [b, s, d] -> (y, new state or None).
+
+    `positions` [b, s] with a state (serving chunked prefill): -1 padding
+    steps become identity elements of the scan (a = 1, B = 0) and rows
+    starting at position 0 restart from h = 0 and an empty conv history.
+    The diagonal recurrence runs as a log-step associative scan in f32
+    (linear_scan), as the reference's jax.lax.associative_scan."""
+    b, s, d = x.shape
+    wdt = params["w_x"].shape[1]
+    f32 = torch.float32
+    chunked = state is not None and positions is not None and not decode
+    if chunked:
+        valid = positions >= 0                                # [b, s]
+        fresh = positions[:, 0] == 0                          # [b]
+    hin = layers.rmsnorm(params["norm"], x, cfg.norm_eps)
+    branch_y = layers._gelu(layers.matmul(hin, params["w_y"]).float()).to(
+        x.dtype)
+    bx = layers.matmul(hin, params["w_x"])
+    conv_state = state["conv"] if state is not None else None
+    if chunked:
+        conv_state = torch.where(fresh[:, None, None],
+                                 torch.zeros_like(conv_state), conv_state)
+        xc, new_conv = layers.causal_conv1d(params["conv"], bx, conv_state,
+                                            valid_len=valid.sum(dim=1))
+    else:
+        xc, new_conv = layers.causal_conv1d(params["conv"], bx, conv_state)
+
+    xf = xc.to(f32)
+    r_pre = params["gate_r"] * xf
+    i_pre = params["gate_i"] * xf
+    log_a = (-8.0 * F.softplus(params["a_param"].to(f32))
+             * torch.sigmoid(r_pre))                          # [b, s, w] < 0
+    if chunked:
+        log_a = torch.where(valid[..., None], log_a, torch.zeros_like(log_a))
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    gated = beta * torch.sigmoid(i_pre) * xf                  # B term
+    if chunked:
+        gated = torch.where(valid[..., None], gated, torch.zeros_like(gated))
+
+    h0 = state["h"] if state is not None else torch.zeros((b, wdt),
+                                                          dtype=f32,
+                                                          device=x.device)
+    if chunked:
+        h0 = torch.where(fresh[:, None], torch.zeros_like(h0), h0)
+    if decode:
+        assert s == 1
+        h = a[:, 0] * h0 + gated[:, 0]
+        hs = h[:, None]
+        new_state = {"h": h, "conv": new_conv}
+    else:
+        # fold h0 into the first step, then the associative scan
+        g0 = torch.cat([gated[:, :1] + a[:, :1] * h0[:, None], gated[:, 1:]],
+                       dim=1)
+        hs = linear_scan(a, g0)
+        new_state = ({"h": hs[:, -1], "conv": new_conv}
+                     if state is not None else None)
+    out = hs.to(x.dtype) * branch_y
+    return layers.matmul(out, params["w_out"]), new_state

@@ -29,13 +29,19 @@ writes each layer's K/V into the pool as that layer runs, so the rings of
 all layers never exist at once (the reference builds them all, then
 scatters them: write_paged_prefill, kept here for a ring tree in hand).
 
-Recurrent blocks (xLSTM's mLSTM and sLSTM) keep their state in per-lane
-pool leaves ([repeats,] n_lanes, ...): a step at width w gathers the rows of
-its lanes into a sub-pool (a copy), runs on it, and scatters the rows back,
-dropping padding rows (lane id >= n_lanes). At xlstm-1.3b's full width the
-state is 0.70 GB per lane (42 mLSTM layers x 16.8 MB of C), so each
-direction copies that much per lane and step. Not ported yet: the ring slot
-pool and per-lane windowed rings (ring/slot slice).
+Recurrent blocks (mLSTM, sLSTM, RG-LRU) and attention layers that do not
+page (windowed rings) keep their state in per-lane pool leaves ([repeats,]
+n_lanes, ...): a step at width w gathers the rows of its lanes into a
+sub-pool (a copy), runs on it, and scatters the rows back, dropping padding
+rows (lane id >= n_lanes) on the device. At xlstm-1.3b's full width the
+state is 0.70 GB per lane (42 mLSTM layers x 16.8 MB of C), at gemma3-12b's
+(context 4096) the 40 local rings are 0.34 GB per lane, so each direction
+copies that much per lane and step.
+
+The slot pool (`init_slot_pool`) is the ring/slot engine's: one cache tree
+whose batch axis is the slot, every attention layer a per-lane ring; a
+prefill overwrites whole slots (`write_cache_slot(s)`), decode runs at the
+pool's width.
 """
 from __future__ import annotations
 
@@ -106,6 +112,87 @@ def greedy_generate(params, cfg: ModelConfig, prompt_tokens, n_steps: int,
     return torch.stack(out, dim=1)
 
 
+# ---------------------------------------------------------------------------
+# Slot pool: a batch of independent ring caches the engine claims and frees
+# ---------------------------------------------------------------------------
+
+def init_slot_pool(cfg: ModelConfig, n_slots: int, context: int,
+                   device="cuda"):
+    """The engine's KV / recurrent slot pool: one cache tree whose batch
+    axis is the slot index; fresh slots hold pos -1 everywhere (every ring
+    entry masked) and zero recurrent states. Made on `device` (default
+    CUDA; raises without a CUDA device)."""
+    return M.init_cache(cfg, n_slots, context, device=device)
+
+
+def write_cache_slots(cfg: ModelConfig, pool, one, slots):
+    """Batched write_cache_slot: rows of a width-W prefill cache tree `one`
+    into pool slots `slots` [W], IN PLACE. Rows whose slot id is >= the
+    pool width are padding and are dropped on the device (no host sync),
+    which lets a batched prefill pad every admission group to the pool
+    width. Unit leaves have the slot on axis 1, tail leaves on axis 0."""
+    for P, o in zip(pool["units"], one["units"]):
+        _put_lanes(P, o, slots, 1)
+    for P, o in zip(pool["tail"], one["tail"]):
+        _put_lanes(P, o, slots, 0)
+    return pool
+
+
+def write_cache_slot(cfg: ModelConfig, pool, one, slot: int):
+    """Overwrite slot `slot` of the pool with a single-sequence cache tree
+    (batch 1), IN PLACE. Prefill rings always span the full cache_len
+    (attention._cache_from_prefill pads short prompts), so this is a
+    whole-slot overwrite: whatever a freed slot accumulated while riding
+    along in batched decode is wiped on claim."""
+    slot = int(slot)
+    for P, o in zip(pool["units"], one["units"]):
+        for k, t in P.items():
+            t.narrow(1, slot, 1).copy_(o[k])
+    for P, o in zip(pool["tail"], one["tail"]):
+        for k, t in P.items():
+            t.narrow(0, slot, 1).copy_(o[k])
+    return pool
+
+
+def make_slot_prefill_step(cfg: ModelConfig,
+                           settings: Optional[M.ModelSettings] = None):
+    """Prefill ONE sequence (tokens [1, p]) from position 0 into slot
+    `slot` of the pool: (last-token logits [1, V], the pool, updated in
+    place)."""
+    settings = settings or M.ModelSettings()
+    psettings = dataclasses.replace(settings, build_cache=True)
+
+    @torch.no_grad()
+    def prefill_into_slot(params, tokens, slot, pool, context: int):
+        logits, one, _ = M.apply(params, cfg, tokens, settings=psettings,
+                                 context=context, logits_last_only=True)
+        return logits[:, -1], write_cache_slot(cfg, pool, one, slot)
+
+    return prefill_into_slot
+
+
+def make_batch_prefill_step(cfg: ModelConfig,
+                            settings: Optional[M.ModelSettings] = None):
+    """Batched prefill: tokens [W, p] from position 0 (padding rows carry
+    dummy prompts), each row written into pool slot `slots[w]` (ids >= the
+    pool width are dropped): (last-token logits [W, V], the pool, updated
+    in place)."""
+    settings = settings or M.ModelSettings()
+    psettings = dataclasses.replace(settings, build_cache=True)
+
+    @torch.no_grad()
+    def prefill_into_slots(params, tokens, slots, pool, context: int):
+        logits, one, _ = M.apply(params, cfg, tokens, settings=psettings,
+                                 context=context, logits_last_only=True)
+        return logits[:, -1], write_cache_slots(cfg, pool, one, slots)
+
+    return prefill_into_slots
+
+
+# ---------------------------------------------------------------------------
+# Paged KV pool
+# ---------------------------------------------------------------------------
+
 def is_paged_block(blk, context: int) -> bool:
     """Which layers page: attention whose ring spans the full context (the
     dominant KV cost). Short windowed/chunked rings stay per-lane."""
@@ -126,11 +213,11 @@ def init_paged_pool(cfg: ModelConfig, n_lanes: int, n_blocks: int,
 
     Recurrent blocks get per-lane leaves ([repeats,] n_lanes, ...: the
     block's zero state, models.model.state_shapes), so a pool of an
-    all-recurrent model pages nothing. Position leaves start at -1
-    (invalid), payloads and states at zero. The pool is made on `device`
-    (default CUDA; raises without a CUDA device). Attention layers that do
-    not page (windowed / chunked rings) need the ring/slot slice and raise
-    NotImplementedError."""
+    all-recurrent model pages nothing; attention layers that do not page
+    (windowed / chunked rings shorter than the context) get per-lane rings
+    of cache_len(context) slots. Position leaves start at -1 (invalid),
+    payloads and states at zero. The pool is made on `device` (default
+    CUDA; raises without a CUDA device)."""
     if context % block:
         raise ValueError(f"paged pool context {context} must be a multiple "
                          f"of the kv block size {block}")
@@ -164,9 +251,7 @@ def init_paged_pool(cfg: ModelConfig, n_lanes: int, n_blocks: int,
         if is_paged_block(blk, context):
             return paged_leaf()
         if blk.is_attn:
-            raise NotImplementedError(
-                f"per-lane ring for block {blk}: needs the ring/slot slice "
-                "(windowed layers)")
+            return A.cache_shapes(cfg, blk, n_lanes, context)
         return M.state_shapes(cfg, blk, n_lanes)
 
     def materialize(spec, lead=()):
@@ -259,23 +344,36 @@ def _is_paged_leaf(P) -> bool:
 
 def _put_lanes(P, o, lane_ids, axis: int):
     """Rows of the per-lane leaves `o` into the pool leaves `P` at
-    `lane_ids` along `axis`, IN PLACE; rows whose id is >= n_lanes (padding)
-    are removed first: index_copy_ has no drop mode."""
-    n = next(iter(P.values())).shape[axis]
-    ids = lane_ids.to(device=next(iter(P.values())).device).long()
-    keep = torch.nonzero((ids >= 0) & (ids < n)).squeeze(1)
+    `lane_ids` along `axis`, IN PLACE. Rows whose id is outside [0,
+    n_lanes) are padding; index_copy_ has no drop mode, so they are dropped
+    on the device, with no host sync: each is sent to the first kept row's
+    lane with that row's values (one value written twice), and where no
+    row is kept lane 0 gets its own value back."""
+    t0 = next(iter(P.values()))
+    n = t0.shape[axis]
+    ids = lane_ids.to(device=t0.device).long()
+    keep = (ids >= 0) & (ids < n)
+    first = torch.argmax(keep.to(torch.int32))     # 0 when nothing is kept
+    anyk = keep.any()
+    rows = torch.where(keep, torch.arange(ids.shape[0], device=ids.device),
+                       first)
+    tgt = torch.where(keep, ids, torch.where(anyk, ids[first],
+                                             torch.zeros_like(first)))
     for k, t in P.items():
-        t.index_copy_(axis, ids[keep],
-                      o[k].index_select(axis, keep.to(o[k].device)).to(
-                          t.dtype))
+        old0 = t.narrow(axis, 0, 1).clone()
+        t.index_copy_(axis, tgt, o[k].index_select(
+            axis, rows.to(o[k].device)).to(device=t.device, dtype=t.dtype))
+        lane0 = t.narrow(axis, 0, 1)
+        lane0.copy_(torch.where(anyk, lane0, old0))
 
 
 def gather_pool_lanes(pool, lane_ids):
     """Sub-pool of a paged pool at lanes `lane_ids` [w]: paged block-pool
     leaves pass through whole — the SAME tensors (block tables route them,
     so they need no lane axis), so a step that writes the sub-pool writes
-    the pool; per-lane leaves (recurrent states) are gathered down to width
-    w, a COPY, to be written back with scatter_pool_lanes. Padding ids >=
+    the pool; per-lane leaves (recurrent states, windowed rings) are
+    gathered down to width w, a COPY, to be written back with
+    scatter_pool_lanes. Padding ids >=
     n_lanes clamp to a real lane on the read — harmless, because the
     scatter drops their rows."""
     def take(P, axis):

@@ -25,7 +25,7 @@ from repro_torch.serving.trace import (  # noqa: F401
 
 
 def __getattr__(name):
-    if name == "PagedTorchExecutor":
+    if name in ("PagedTorchExecutor", "TorchExecutor"):
         from repro_torch.serving import executor
         return getattr(executor, name)
     raise AttributeError(name)

@@ -1,5 +1,12 @@
-"""The PyTorch executor behind the serving engine: a paged KV block pool
-with eager decode / chunk-prefill steps.
+"""The PyTorch executors behind the serving engine: a slotted ring-cache
+pool (`TorchExecutor`) and a paged KV block pool (`PagedTorchExecutor`),
+with eager prefill / decode steps.
+
+`TorchExecutor` has the surface of the reference package's `JaxExecutor`:
+each slot of the pool is one lane's cache tree (a ring per attention layer,
+a state per recurrent block); a prefill overwrites whole slots, and every
+decode tick runs at the pool's width, the rings' slot = pos % L layout
+taking each lane's own position.
 
 `PagedTorchExecutor` has the surface of the reference package's
 `PagedJaxExecutor`: lane COMPACTION (decode at the smallest bucketed width
@@ -57,6 +64,95 @@ def _cover(n: int, buckets: Sequence[int]) -> int:
         if b >= n:
             return b
     return buckets[-1]
+
+
+class TorchExecutor:
+    """Engine slot operations over the slot pool (runtime.serve_step.
+    init_slot_pool): prefill writes one slot, or a same-length group padded
+    to the pool width (padding rows carry slot id n_slots and are dropped
+    on the device); decode advances every slot in one batched
+    heterogeneous-position step at the pool's width. Ring decode goes
+    through the ring decode kernel on the card (settings.attn.backend
+    "kernel"), whole-prompt prefill through the flash-attention kernel.
+
+    The pool lives on `device` (default "cuda"; raises without a CUDA
+    device) and is updated in place by every step. `params` must already be
+    on that device."""
+
+    def __init__(self, params, cfg: ModelConfig, *, n_slots: int,
+                 context: int, settings: Optional[M.ModelSettings] = None,
+                 device="cuda"):
+        self.device = M.require_device(device)
+        self.params = params
+        self.cfg = cfg
+        self.settings = settings
+        self.n_slots = int(n_slots)
+        self.context = int(context)
+        self.pool = SS.init_slot_pool(cfg, self.n_slots, self.context,
+                                      device=self.device)
+        self._prefill_step = SS.make_slot_prefill_step(cfg, settings)
+        self._batch_step = SS.make_batch_prefill_step(cfg, settings)
+        self._decode_step = SS.make_decode_step(cfg, settings)
+        self.prefills = 0
+        self.decodes = 0
+
+    def _dev(self, a, dtype=torch.int32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+
+    @staticmethod
+    def _argmax(logits) -> np.ndarray:
+        return torch.argmax(logits, dim=-1).cpu().numpy()
+
+    @torch.no_grad()
+    def prefill(self, slot: int, prompt: Sequence[int]) -> int:
+        tokens = self._dev([list(prompt)])
+        logits, self.pool = self._prefill_step(self.params, tokens, slot,
+                                               self.pool,
+                                               context=self.context)
+        self.prefills += 1
+        return int(self._argmax(logits)[0])
+
+    @torch.no_grad()
+    def prefill_batch(self, slots: Sequence[int],
+                      prompts: Sequence[Sequence[int]],
+                      tables=None) -> List[int]:
+        """One prefill of a same-length admission group, padded to the pool
+        width W: padding rows carry the config's pad token and slot id W,
+        which the slot write drops."""
+        p = len(prompts[0])
+        if p < 1 or any(len(pr) != p for pr in prompts):
+            raise ValueError("prefill_batch takes prompts of one length")
+        toks = np.full((self.n_slots, p), _pad_token(self.cfg), np.int32)
+        idx = np.full((self.n_slots,), self.n_slots, np.int32)
+        for i, (s, pr) in enumerate(zip(slots, prompts)):
+            toks[i] = pr
+            idx[i] = s
+        logits, self.pool = self._batch_step(
+            self.params, self._dev(toks), self._dev(idx), self.pool,
+            context=self.context)
+        self.prefills += len(slots)        # per-request, like the engine
+        out = self._argmax(logits)
+        return [int(out[i]) for i in range(len(slots))]
+
+    def decode_width(self, n_active: int) -> int:
+        """The batch width a decode tick computes at: always the pool's."""
+        return self.n_slots
+
+    @torch.no_grad()
+    def decode(self, tokens: Sequence[int], positions: Sequence[int],
+               tables=None, lanes=None) -> List[int]:
+        t = self._dev(list(tokens))[:, None]
+        p = self._dev(list(positions))
+        logits, self.pool = self._decode_step(self.params, t, p, self.pool,
+                                              context=self.context)
+        self.decodes += 1
+        return self._argmax(logits).astype(int).tolist()
+
+    def compile_counts(self) -> dict:
+        """Nothing is compiled here: the reference executor's jit counts
+        have no counterpart, so every entry is None (unknown), as the
+        reference reports for a jax without a cache-size probe."""
+        return {"prefill": None, "decode": None}
 
 
 class PagedTorchExecutor:

@@ -163,9 +163,9 @@ def test_attn_apply_track_mass_and_unported_paths_raise():
         np.testing.assert_allclose(auxt["attn_mass"].numpy(),
                                    np.asarray(auxj["attn_mass"]), atol=5e-3,
                                    rtol=0)
-    # the sequence path without a cache and ring decode are ported (they
-    # raised before): equal to the reference's; a chunk appended to a ring
-    # still raises, naming the slice that lifts it
+    # the sequence path without a cache, ring decode and a chunk appended
+    # to a ring are ported (they raised before): the first equal to the
+    # reference's, the last writing the chunk's positions into the ring
     x = _attn_inputs(cj, 1, 1, 4)
     xt = torch.from_numpy(x).to(torch.bfloat16)
     pos = torch.arange(4, dtype=torch.int32)[None]
@@ -182,7 +182,9 @@ def test_attn_apply_track_mass_and_unported_paths_raise():
     _, same, _ = TA.attn_apply(pmt, ct, ct.unit[0], xt[:, :1], pos[:, :1],
                                cache=ring, decode=True)
     assert same is ring and ring["pos"][0].tolist() == [0] + [-1] * 7
-    with pytest.raises(NotImplementedError, match="ring"):
-        TA.attn_apply(pmt, ct, ct.unit[0], xt, pos, cache=ring)
+    yc, same, _ = TA.attn_apply(pmt, ct, ct.unit[0], xt[:, 1:],
+                                pos[:, 1:], cache=ring)
+    assert same is ring and ring["pos"][0].tolist() == [0, 1, 2, 3] + [-1] * 4
+    assert yc.shape == (1, 3, ct.d_model) and torch.isfinite(yc).all()
     with pytest.raises(ValueError):
         TA.AttnSettings(backend="pallas")

@@ -43,7 +43,8 @@ def test_every_module_imports_without_jax_or_reference_package():
                  "repro_torch.runtime.train_step",
                  "repro_torch.runtime.schedule", "repro_torch.runtime.fault",
                  "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
-                 "repro_torch.launch.train", "repro_torch.tree"):
+                 "repro_torch.launch.train", "repro_torch.tree",
+                 "repro_torch.kernels.decode_attention"):
         assert want in names
     code = (
         "import importlib, sys\n"
@@ -77,18 +78,20 @@ def test_no_source_file_names_jax_or_the_reference_package():
 
 def test_build_module_imports_without_nvcc_and_raises_only_on_use():
     import torch
-    from repro_torch.kernels import (build, flash_attention,
-                                     flash_attention_bwd, mlstm_scan,
-                                     paged_decode, paged_prefill)
+    from repro_torch.kernels import (build, decode_attention,
+                                     flash_attention, flash_attention_bwd,
+                                     mlstm_scan, paged_decode, paged_prefill)
     assert set(build.SOURCES) == {paged_decode.SOURCE, paged_prefill.SOURCE,
                                   flash_attention.SOURCE,
                                   flash_attention_bwd.SOURCE,
-                                  mlstm_scan.SOURCE}
+                                  mlstm_scan.SOURCE, decode_attention.SOURCE}
+    assert len(build.SOURCES) == 6
     for f in build.SOURCES + build.HEADERS:
         assert os.path.exists(os.path.join(build.CSRC, f)), f
     assert paged_decode.launches == 0 and paged_prefill.launches == 0
     assert flash_attention.launches == 0 and mlstm_scan.launches == 0
     assert flash_attention_bwd.launches == 0
+    assert decode_attention.launches == 0
     if build.find_nvcc() is None:
         with pytest.raises(build.KernelCompileError, match="nvcc"):
             build.library(paged_decode.SOURCE)
@@ -100,6 +103,10 @@ def test_build_module_imports_without_nvcc_and_raises_only_on_use():
         q, pool, pool.clone(), pos, torch.zeros((1, 1), dtype=torch.int32),
         torch.zeros((1,), dtype=torch.int32))
     assert out.shape == q.shape and paged_decode.launches == 0
+    ring = decode_attention.decode_attention_fwd(
+        q, pool[:1], pool[:1].clone(), pos[:1],
+        torch.zeros((1,), dtype=torch.int32))
+    assert ring.shape == q.shape and decode_attention.launches == 0
 
 
 def test_chip_smoke_fails_without_a_gpu():

@@ -149,9 +149,10 @@ def test_init_params_layout_and_device_rule():
 
 
 def test_unported_paths_raise_by_name():
-    """What is not ported raises by name (RG-LRU, MoE, the per-lane rings
-    of the ring/slot slice); the cache-free forward (which raised before
-    whole-prompt prefill was ported) runs and equals the reference's."""
+    """What is not ported raises by name (MoE); the cache-free forward
+    (which raised before whole-prompt prefill was ported) runs and equals
+    the reference's; RG-LRU parameters and gemma3-12b's paged pool with
+    per-lane rings (which raised before the ring/slot slice) are built."""
     from repro_torch.configs import get_config
     cj, pj, ct, pt = model_pair()
     toks = np.asarray([[5, 9, 2, 7]], np.int32)
@@ -161,14 +162,17 @@ def test_unported_paths_raise_by_name():
     assert cache is None
     _check_logits(lt.numpy(), np.asarray(lj))
     gen = torch.Generator(device="cpu").manual_seed(0)
-    with pytest.raises(NotImplementedError, match="RG-LRU"):
-        init_params(gen, get_config("recurrentgemma-9b").reduced(),
-                    device="cpu")
+    rg = init_params(gen, get_config("recurrentgemma-9b").reduced(),
+                     device="cpu")
+    assert rg["units"][0]["mixer"]["a_param"].dtype == torch.float32
+    assert rg["units"][0]["mixer"]["w_x"].dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="MoE"):
         init_params(gen, get_config("mixtral-8x7b").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ring/slot"):
-        SS.init_paged_pool(get_config("gemma3-12b").reduced(), 2, 6, 4, 16,
-                           device="cpu")
+    pool = SS.init_paged_pool(get_config("gemma3-12b").reduced(), 2, 6, 4,
+                              16, device="cpu")
+    assert [("kb" in P) for P in pool["units"]] == [False] * 5 + [True]
+    assert pool["units"][0]["pos"].shape == (1, 2, 8)
+    assert (pool["units"][0]["pos"] == -1).all()
 
 
 def test_convert_device_rule():
