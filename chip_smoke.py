@@ -22,7 +22,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      tile divides, padded rows, rows that see nothing, h2o-danube-1.8b's
      training shape [4, 2048, 32, 80], and an autograd round trip through
      ops.flash_attention_trainable against autograd through the plain
-     forward; for the mLSTM scan the reference sweep (dk != dv too), with
+     forward; both flash kernels also at the tensor-core body's tile
+     edges (s = 127, 129, 1025 at head_dim 80, G = 12), at every padded
+     head width of the tensor-core bodies (head_dim 40, 96, 112, 160, 224
+     besides the path's), and at the serving paths' head layouts (gemma3-12b's local prefill [1, 2048, 16, 256]
+     window 1024, recurrentgemma-9b's [1, 3000, 16, 256] window 2048);
+     every flash case prints the body its C entry point reports and fails
+     unless bf16 ran the tensor-core body and f32 the CUDA-core one; for the mLSTM scan the reference sweep (dk != dv too), with
      and without a carried state, fresh rows, padded steps, padding-only
      rows, f32 / bf16 and xlstm-1.3b's serving shape [32, 256, 1024]; for
      ring decode f32 / bf16, no mask / window / chunk, G = 1, 2, 4, 16,
@@ -91,11 +97,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      per-lane leaves; kernels against plain versions at one unit plus the
      tail.
   then: each kernel timed at the largest shape its path launched it at
-  (the flash forward and backward also at phase 8's training shape; ring
-  decode at phase 9's slot-mode global ring [8, 4096, 8, 256]), beside its
-  plain version, its bound and (flash attention, forward and backward; ring
-  decode) the one PyTorch call that computes the same function; one JSON
-  line `kernels`.
+  (the flash forward and backward also at phase 8's training shape, the
+  forward also at phase 9's padded slot prefill [8, 2048, 16, 256] under
+  window 1024; ring decode at phase 9's slot-mode global ring [8, 4096, 8,
+  256]), beside its plain version, its bound and (flash attention, forward
+  and backward; ring decode) the one PyTorch call that computes the same
+  function; the flash rows also with their TFLOP/s and share of 989
+  TFLOP/s; one JSON line `kernels`.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -105,6 +113,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -262,7 +271,11 @@ def phase_device():
         f"with {build.find_nvcc()}")
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "error" in line.lower():
+            if ("registers" in line or "error" in line.lower()
+                    or "_tc_kernel" in line
+                    or ("spill" in line and not re.search(
+                        r"\b0 bytes spill stores, 0 bytes spill loads",
+                        line))):
                 log(f"[1]   {name}: {line.strip()}")
     for mod in KERNEL_MODULES:
         build.library(mod.SOURCE)
@@ -478,6 +491,22 @@ def ring_case(gen, name, *, L, K, G, hd, ends, qdt=torch.bfloat16,
     return err
 
 
+def check_body(name, mod, dt):
+    """The body the C entry point of `mod` reported for its last launch:
+    the tensor cores for bf16, the CUDA cores for f32."""
+    want = "tensor-core bf16" if dt == torch.bfloat16 else "cuda-core f32"
+    if mod.last_body != want:
+        fail(f"{name}: the launch ran the {mod.last_body} body, want {want}")
+    return mod.last_body
+
+
+# (head_dim, length, G, window) of the padded head widths 48, 96, 112,
+# 160 and 224 that no path runs: each has its own tile and occupancy
+# settings in both flash kernels
+PADDED_WIDTHS = ((40, 131, 3, None), (96, 197, 6, 64), (112, 263, 4, None),
+                 (160, 141, 12, 100), (224, 77, 2, None))
+
+
 def flash_case(gen, name, *, b, s, K, G, hd, qdt=torch.bfloat16,
                window=None, chunk=None, lens=None, start=0):
     """Kernel 3 against its plain version, out and lse. Row i holds
@@ -494,11 +523,14 @@ def flash_case(gen, name, *, b, s, K, G, hd, qdt=torch.bfloat16,
     got, lse = flash_attention.flash_attention_fwd(
         q, k, v, pos, pos, window=window, chunk=chunk, return_lse=True)
     torch.cuda.synchronize()
+    body = check_body(name, flash_attention, qdt)
     want, lse_want = flash_attention.flash_attention_plain(
         q, k, v, pos, pos, window=window, chunk=chunk, return_lse=True)
     tol = TOL_F32 if qdt == torch.float32 else TOL_BF16
     err = check_close(name, got, want, tol)
-    check_close(name + " lse", lse, lse_want, TOL_LSE)
+    lerr = check_close(name + " lse", lse, lse_want, TOL_LSE)
+    log(f"[2] {name}: {body} body, max abs err out {err:.3e}, lse "
+        f"{lerr:.3e}")
     return err
 
 
@@ -547,10 +579,13 @@ def flash_bwd_case(gen, name, *, b, s, K, G, hd, qdt=torch.bfloat16,
     got = flash_attention_bwd.flash_attention_bwd(*args, window=window,
                                                   chunk=chunk)
     torch.cuda.synchronize()
+    body = check_body(name, flash_attention_bwd, qdt)
     want = flash_attention_bwd.flash_attention_bwd_plain(
         *args, window=window, chunk=chunk)
     errs = [check_bwd(f"{name} {n}", a, w)
             for n, a, w in zip(("dq", "dk", "dv"), got, want)]
+    log(f"[2] {name}: {body} body, max abs err dq {errs[0]:.3e} dk "
+        f"{errs[1]:.3e} dv {errs[2]:.3e}")
     if blind:
         if float(lse[0, :blind].max()) > -1e29:
             fail(f"{name}: the blind rows saw something (lse "
@@ -581,11 +616,16 @@ def flash_autograd_case(gen, name, *, b, s, K, G, hd, qdt, window=None):
     if flash_attention_bwd.launches != nb + 1:
         fail(f"{name}: the autograd Function did not launch the backward "
              "kernel")
+    bodies = (check_body(name, flash_attention, qdt),
+              check_body(name, flash_attention_bwd, qdt))
     want = grads(lambda q_, k_, v_: flash_attention.flash_attention_plain(
         q_.reshape(b, s, K * G, hd), k_, v_, pos, pos,
         window=window).reshape(b, s, K, G, hd))
-    return [check_bwd(f"{name} {n}", a, w_, ATOL_AUTOGRAD_BF16)
+    errs = [check_bwd(f"{name} {n}", a, w_, ATOL_AUTOGRAD_BF16)
             for n, a, w_ in zip(("dq", "dk", "dv"), got, want)]
+    log(f"[2] {name}: {bodies[0]} / {bodies[1]} bodies, max abs err dq "
+        f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}")
+    return errs
 
 
 def check_rel(name, got, want):
@@ -772,6 +812,21 @@ def phase_kernels():
           **DN)
         f(f"s517 danube heads window100 {t}", b=1, s=517, qdt=qdt,
           window=100, **DN)
+    # the tensor-core body's tile edges (16-row mma tiles, 128-row blocks
+    # of 10 positions at G = 12, 64-key tiles) and the serving paths' real
+    # head layouts: gemma3-12b's local prefill, recurrentgemma-9b's (MQA)
+    for s in (127, 129, 1025):
+        f(f"tile edge s{s} K2 G12 hd80 bf16", b=1, s=s, K=2, G=12, hd=80)
+    # the tensor-core body's other padded head widths (48, 96, 112, 160,
+    # 224: each its own tile and occupancy settings) at odd lengths, G > 1
+    for hd, s, G, window in PADDED_WIDTHS:
+        w = f" window{window}" if window else ""
+        f(f"hd{hd} s{s} K2 G{G}{w} ragged bf16", b=2, s=s, K=2, G=G, hd=hd,
+          window=window, lens=[s, s // 2 + 3])
+    f("gemma3 local prefill [1, 2048, 16, 256] window1024 bf16", b=1, s=2048,
+      window=1024, **GM)
+    f("rgemma prefill [1, 3000, 16, 256] window2048 bf16", b=1, s=3000,
+      window=2048, **RG)
     errs["flash_attention_train"] = flash_case(
         gen, "flash train [4, 2048, 32, 80] window4096", b=4, s=2048,
         window=4096, **DN)
@@ -809,6 +864,31 @@ def phase_kernels():
            hd=64, window=16, blind=20, qdt=qdt)
     fb("hd256 G2 f32", b=2, s=100, K=2, G=2, hd=256, qdt=torch.float32)
     fb("G12 hd192 bf16", b=1, s=90, K=2, G=12, hd=192)
+    for s in (127, 129, 1025):
+        fb(f"tile edge s{s} K2 G12 hd80 bf16", b=1, s=s, K=2, G=12, hd=80)
+    for hd, s, G, window in PADDED_WIDTHS:
+        w = f" window{window}" if window else ""
+        fb(f"hd{hd} s{s} K2 G{G}{w} ragged bf16", b=2, s=s, K=2, G=G, hd=hd,
+           window=window, lens=[s, s // 2 + 3])
+    # more query heads per kv head than the bf16 dK/dV tile holds: the
+    # wrapper refuses before any launch
+    G = flash_attention_bwd.BF16_MAX_G + 1
+    q = torch.zeros((1, 4, G, 16), dtype=torch.bfloat16, device=DEV)
+    k = torch.zeros((1, 4, 1, 16), dtype=torch.bfloat16, device=DEV)
+    lse = torch.zeros((1, 4, G), device=DEV)
+    pos = torch.arange(4, dtype=torch.int32, device=DEV)[None]
+    nb = flash_attention_bwd.launches
+    try:
+        flash_attention_bwd.flash_attention_bwd(q, k, k, q, lse, q, pos, pos)
+        fail(f"flash bwd G{G} bf16: launched past the tile's query rows")
+    except ValueError as e:
+        if flash_attention_bwd.launches != nb:
+            fail(f"flash bwd G{G} bf16: counted a launch it refused")
+        log(f"[2] flash bwd G{G} bf16: refused ({e})")
+    fb("gemma3 local [1, 2048, 16, 256] window1024 bf16", b=1, s=2048,
+       window=1024, **GM)
+    fb("rgemma [1, 3000, 16, 256] window2048 bf16", b=1, s=3000,
+       window=2048, **RG)
     # the training shape of phase 8: [4, 2048, 32, 80], 8 kv heads, causal
     # under the 4096 window
     fb("train [4, 2048, 32, 80] window4096", b=4, s=2048, window=4096, **DN)
@@ -1140,8 +1220,8 @@ def phase_main(cfg, params):
             f"{rep.prefill_calls} whole-prompt prefill calls, the rest in "
             f"{ex.chunk_calls} chunk calls), {gen_tokens} generated tokens "
             f"in {ex.decodes} decode "
-            f"ticks, {rep.ticks} ticks, {dt:.2f}s wall ({tick_times(ex)}); "
-            f"pool "
+            f"ticks, {rep.ticks} ticks, {dt:.2f}s wall "
+            f"({tick_times(ex)}); pool "
             f"{plan['pool_blocks']} blocks (capacity model allows "
             f"{plan['capacity_blocks']} under {HBM_BUDGET:.3e} B), peak "
             f"blocks {rep.peak_blocks}; kernel launches decode {nd} = "
@@ -1325,7 +1405,8 @@ def judge_greedy(tag, cfg, params, trace, rids, outs, dt, eng, calls,
     worst = max((max(j[6]) for j in judged), default=0.0)
     log(f"[{tag}] greedy_generate, {cfg.n_layers} layers, requests "
         f"{list(rids)} (prompts {[len(by_rid[r].prompt) for r in rids]} "
-        f"tokens) in {dt:.2f}s: {equal}/{len(rids)} streams equal to "
+        f"tokens) in {dt:.2f}s: {equal}/{len(rids)} "
+        f"streams equal to "
         f"{against}; "
         f"{launches}; largest rms logit difference up to a first "
         f"divergence {worst:.4f} of the logits' rms spread (bound "
@@ -1486,8 +1567,8 @@ def phase_xlstm(phases):
         f"{len(trace)} requests, {rep.prefill_tokens} prompt tokens "
         f"({rep.prefill_calls} whole-prompt prefill calls, {ex.chunk_calls} "
         f"chunk calls), {gen_tokens} generated tokens in {ex.decodes} decode "
-        f"ticks, {rep.ticks} ticks, {dt:.2f}s wall ({tick_times(ex)}); "
-        f"allocator "
+        f"ticks, {rep.ticks} ticks, {dt:.2f}s wall "
+        f"({tick_times(ex)}); allocator "
         f"{plan['pool_blocks']} blocks (nothing paged; capacity model "
         f"allows {plan['capacity_blocks']}); mlstm launches {nml} = {nm} x "
         f"({rep.prefill_calls} + {ex.chunk_calls}), 0 in decode ticks; "
@@ -1733,7 +1814,8 @@ def phase_ring_model(arch, tag, seed, trace):
         f"prompt tokens in {rep.prefill_calls} whole-prompt prefill calls "
         f"(each padded to {LANES} rows), {gen_tokens} generated tokens in "
         f"{ex.decodes} decode ticks at width {LANES}, {rep.ticks} ticks, "
-        f"{dt:.2f}s wall; {tick_times(ex)}; ring decode launches "
+        f"{dt:.2f}s wall; {tick_times(ex)}; ring decode "
+        f"launches "
         f"{got['decode_attention']} = {len(attn)} x {ex.decodes}, flash "
         f"{got['flash_attention']} = {len(attn)} x {rep.prefill_calls}")
     pred = slot["resident"] + slot["transient"]
@@ -1745,7 +1827,8 @@ def phase_ring_model(arch, tag, seed, trace):
         f"slot pool {pool_bytes / 1e9:.3f} GB, "
         f"torch.cuda.max_memory_allocated() {peak / 1e9:.3f} GB (weights "
         f"{w_bytes / 1e9:.3f} GB); measured / predicted = {peak / pred:.4f}")
-    out["slot"] = {"launches": got["decode_attention"]}
+    out["slot"] = {"launches": got["decode_attention"],
+                   "flash": got["flash_attention"]}
     slot_streams = {c.rid: c.tokens for c in rep.completions}
     del ex
 
@@ -1781,7 +1864,8 @@ def phase_ring_model(arch, tag, seed, trace):
         f"{len(rep.completions)}/{len(trace)} requests, {rep.prefill_tokens} "
         f"prompt tokens ({rep.prefill_calls} whole-prompt prefill calls, "
         f"{ex.chunk_calls} chunk calls), {ex.decodes} compacted decode "
-        f"ticks, {rep.ticks} ticks, {dt:.2f}s wall; {tick_times(ex)}; "
+        f"ticks, {rep.ticks} ticks, {dt:.2f}s wall; "
+        f"{tick_times(ex)}; "
         f"launches paged decode "
         f"{got['paged_decode']} = {n_paged} x {ex.decodes}, paged prefill "
         f"{got['paged_prefill']} = {n_paged} x {ex.chunk_calls}, ring decode "
@@ -1986,7 +2070,8 @@ def phase_train():
         pred = r["resident"] + r["transient"]
         log(f"[8] plan {r['plan']}: {steps} steps of [{TR_BATCH}, {TR_SEQ}] "
             f"tokens in {r['wall']:.2f}s (per step "
-            f"{[round(x, 3) for x in r['step_s']]} s); loss "
+            f"{[round(x, 3) for x in r['step_s']]} s); "
+            f"loss "
             f"{[round(x, 4) for x in r['loss']]}; grad_norm "
             f"{[round(x, 4) for x in r['grad_norm']]}; flash launches "
             f"forward {r['fwd']}, backward {r['bwd']}")
@@ -2095,11 +2180,13 @@ def time_prefill(cfg, gen, w, mb, codec):
     return ms, plain, nbytes, flops
 
 
-def time_flash(cfg, gen, w, s):
-    """Flash attention at [w, s] causal, cfg's heads, bf16: the
-    kernel, its plain version and scaled_dot_product_attention (the one
-    PyTorch call that computes the same function; timed here, never called
-    by the port), and the bytes and operations the function needs."""
+def time_flash(cfg, gen, w, s, window=None):
+    """Flash attention at [w, s] causal (under `window` if given), cfg's
+    heads, bf16: the kernel, its plain version and
+    scaled_dot_product_attention (the one PyTorch call that computes the
+    same function, with is_causal or the equivalent boolean mask; timed
+    here, never called by the port), and the bytes and operations the
+    function needs for these inputs."""
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = torch.randn((w, s, H, hd), generator=gen, device=DEV).to(
         torch.bfloat16)
@@ -2109,21 +2196,30 @@ def time_flash(cfg, gen, w, s):
         torch.bfloat16)
     pos = torch.arange(s, dtype=torch.int32, device=DEV)[None].repeat(w, 1)
     args = (q, k, v, pos, pos)
-    ms = time_ms(lambda: flash_attention.flash_attention_fwd(*args), 10)
-    plain = time_ms(lambda: flash_attention.flash_attention_plain(*args), 3)
+    kw = dict(window=window)
+    ms = time_ms(lambda: flash_attention.flash_attention_fwd(*args, **kw), 10)
+    plain = time_ms(
+        lambda: flash_attention.flash_attention_plain(*args, **kw), 3)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window is None or window >= s:
+        mask = dict(is_causal=True)
+    else:
+        i = torch.arange(s, device=DEV)
+        mask = dict(attn_mask=(i[None] <= i[:, None])
+                    & (i[None] > i[:, None] - window))
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, enable_gqa=True, **mask)
 
     lib = time_ms(sdpa, 10)
     dev = float((sdpa().transpose(1, 2).float()
-                 - flash_attention.flash_attention_plain(*args).float()
+                 - flash_attention.flash_attention_plain(*args, **kw).float()
                  ).abs().max())
     # q, k, v read once, o written once, both position vectors read
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 2 * pos.numel() * 4
-    flops = 4.0 * hd * H * w * s * (s + 1) / 2      # causal pairs
+    # two products of 2 * hd operations per visible pair and query head
+    flops = 4.0 * hd * H * visible_pairs(pos, pos, window=window)
     return ms, plain, lib, dev, nbytes, flops
 
 
@@ -2178,6 +2274,45 @@ def time_flash_bwd(cfg, gen, w, s):
     return ms, plain, lib, dev, nbytes, flops, pairs
 
 
+def flash_row(name, src, replaces, launches, err, timed, shape, **extra):
+    """A flash kernel's `kernels` row from its timing (ms, plain, library
+    ms, library deviation, bytes, operations): the bound, the achieved
+    TFLOP/s (the visible pairs' operations over the kernel's time) and its
+    share of the card's 989 TFLOP/s."""
+    ms, plain, lib, dev, nbytes, flops = timed[:6]
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    rate = flops / (ms * 1e-3)
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib, "library_max_abs_dev": dev, "shape": shape,
+            "bytes": nbytes, "operations": flops,
+            "tflops": rate / 1e12, "share_of_peak": rate / PEAK_BF16_FLOPS,
+            **extra}
+
+
+SRC_FA = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SRC_FB = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+REPL_FA = "src/repro/kernels/flash_attention.py:111"
+REPL_FB = "src/repro/kernels/flash_attention_bwd.py:170"
+
+
+def slot_prefill_row(cfg, launches, err):
+    """The flash forward at gemma3-12b's padded slot prefill [8, 2048, 16,
+    256] under its local layers' window 1024 (40 of its 48 flash launches a
+    prefill call)."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    window = min(b.window for b in cfg.blocks() if b.is_attn and b.window)
+    shape = {"batch": LANES, "positions": 2048, "heads": cfg.n_heads,
+             "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+             "window": window}
+    return flash_row("flash_attention[slot_prefill]", SRC_FA, REPL_FA,
+                     launches, err,
+                     time_flash(cfg, gen, LANES, 2048, window=window), shape)
+
+
 def train_rows(tr, errs):
     """The `kernels` line's rows of the training path: the flash forward
     and backward at phase 8's shape [4, 2048, 32, 80]."""
@@ -2186,62 +2321,30 @@ def train_rows(tr, errs):
     shape = {"batch": TR_BATCH, "positions": TR_SEQ, "heads": cfg.n_heads,
              "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
              "window": cfg.unit[0].window}
-    rows = []
-    ms, plain, lib, dev, nbytes, flops = time_flash(cfg, gen, TR_BATCH,
-                                                    TR_SEQ)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    rows.append({
-        "name": "flash_attention[train]", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:111",
-        "launches": tr["fwd"], "max_abs_err": errs["flash_attention_train"],
-        "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": lib, "library_max_abs_dev": dev, "shape": shape,
-        "bytes": nbytes, "operations": flops})
-    ms, plain, lib, dev, nbytes, flops, pairs = time_flash_bwd(
-        cfg, gen, TR_BATCH, TR_SEQ)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    rows.append({
-        "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        "replaces": "src/repro/kernels/flash_attention_bwd.py:170",
-        "launches": tr["bwd"], "max_abs_err": errs["flash_attention_bwd"],
-        "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": lib, "library_max_abs_dev": dev, "shape": shape,
-        "bytes": nbytes, "operations": flops, "visible_pairs": pairs,
-        "launches_per_step": tr["bwd"] // tr["steps"]})
-    return rows
+    fwd = time_flash(cfg, gen, TR_BATCH, TR_SEQ)
+    bwd = time_flash_bwd(cfg, gen, TR_BATCH, TR_SEQ)
+    return [flash_row("flash_attention[train]", SRC_FA, REPL_FA, tr["fwd"],
+                      errs["flash_attention_train"], fwd, shape),
+            flash_row("flash_attention_bwd", SRC_FB, REPL_FB, tr["bwd"],
+                      errs["flash_attention_bwd"], bwd, shape,
+                      visible_pairs=bwd[6],
+                      launches_per_step=tr["bwd"] // tr["steps"])]
 
 
 def kernel_rows(cfg, counts, shapes, errs, greedy=None):
     gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
     rows = []
-    src_fa = "src/repro_torch/kernels/csrc/flash_attention.cu"
     fa = [("prefill_batch",
            max(shapes["none"]["prefill"], key=lambda x: x[0] * x[1] ** 2),
            counts["none"][2])]
     if greedy is not None:
         fa.append(("greedy", greedy[1], greedy[0]))
     for label, (w, s), launches in fa:
-        ms, plain, lib, dev, nbytes, flops = time_flash(cfg, gen, w, s)
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        rows.append({
-            "name": f"flash_attention[{label}]", "route": "cuda",
-            "source": src_fa,
-            "replaces": "src/repro/kernels/flash_attention.py:111",
-            "launches": launches, "max_abs_err": errs["flash_attention"],
-            "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib, "library_max_abs_dev": dev,
-            "shape": {"batch": w, "positions": s, "heads": cfg.n_heads,
-                      "kv_heads": cfg.n_kv_heads,
-                      "head_dim": cfg.resolved_head_dim},
-            "bytes": nbytes, "operations": flops})
+        rows.append(flash_row(
+            f"flash_attention[{label}]", SRC_FA, REPL_FA, launches,
+            errs["flash_attention"], time_flash(cfg, gen, w, s),
+            {"batch": w, "positions": s, "heads": cfg.n_heads,
+             "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim}))
     for kv_quant, codec in (("none", "bf16"), ("int8", "int8")):
         nd, npf, _ = counts[kv_quant]
         for (name, src, replaces, timer, key, launches) in (
@@ -2492,12 +2595,18 @@ def main():
         log(f"[10] phase 10 {time.time() - t0:.2f}s")
     if g3 is not None:
         rows.append(ring_row(g3, rg, errs["decode_attention"]))
+        rows.append(slot_prefill_row(g3["cfg"], g3["slot"]["flash"],
+                                     errs["flash_attention"]))
     for r in rows:
         lib = ("" if r["library_ms"] is None else
                f", library {r['library_ms']:.4f} ms")
+        rate = ("" if "tflops" not in r else
+                f", {r['tflops']:.1f} TFLOP/s = "
+                f"{100 * r['share_of_peak']:.2f} % of 989")
         log(f"[k] {r['name']}: {r['ms']:.4f} ms at {r['shape']}, plain "
             f"{r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
-            f"by {r['bound_by']}, {r['launches']} launches on its path")
+            f"by {r['bound_by']}{rate}, {r['launches']} launches on its "
+            f"path ({smi})")
     log(f"total {time.time() - t_start:.1f}s")
     if not ALL_PHASES <= phases:
         log("partial run (not every phase): no kernels line, no result line")

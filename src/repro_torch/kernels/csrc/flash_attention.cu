@@ -12,21 +12,42 @@
 // Bound on this card: operations for prompts above a few hundred positions
 // (4 * hd operations per visible (query, key) pair and query head, against
 // 2 * hd stored values per key row and kv head), bytes for short prompts.
-// Design: one thread block (128 threads) per (tile of QT query positions,
-// kv head, batch row) serves all G query heads of that kv head (QR = QT * G
-// rows, row m = (position m / G, head m % G)), so every K/V tile is read
-// from device memory once per G heads. It walks k/v in tiles of TK
-// positions: K rows into shared memory with 16-byte loads, several in
-// flight; a 4 x 8 register tile of scores a thread; the online softmax
-// (max, sum) one warp per row; V rows into the buffer K just left; p.V into
-// registers. Tiles are skipped from the positions themselves: a tile whose
-// valid kpos span lies wholly above the block's largest qpos, or outside
-// every row's window or chunk, is never loaded, so positions need not equal
-// indices (the TPU kernel assumes they do). Any sq, sk: the last tiles are
-// bounds-checked. CUDA cores in f32: no tensor cores, no asynchronous copies
-// yet.
+// Two bodies, chosen by dtype alone (never by shape); the entry point
+// reports which one ran.
+//
+// bf16 inputs: the tensor-core body (flash_fwd_tc_kernel). One block of 8
+// warps per (tile of 128 / G query positions, kv head, batch row) serves
+// all G query heads of that kv head as 128 rows (row m = (position m / G,
+// head m % G)), so every K/V tile is read from device memory once per G
+// heads; each warp owns 16 rows (two blocks an SM up to hd 128; the last
+// query tiles, which see the most keys, start first). The block works out
+// its walk over the K/V tiles once, from the positions, into shared
+// memory; the tiles of BN keys go through a two-stage cp.async ring (the
+// next live tile loads while this one is computed). Per tile and warp: S = Q . K^T by mma.sync
+// m16n8k16 (bf16 in, f32 out; 1/sqrt(hd) applied to the f32 product, never
+// to q before its rounding), the mask from the positions in registers, the
+// online softmax reduced over the four lanes that share a row (shuffles),
+// and O += P . V by mma.sync with P split into bf16 hi + lo halves: P
+// rounded once to bf16 would carry 2^-9 of each weight into the output,
+// above the bf16 tolerance (tests/test_torch_flash_rounding.py). The head
+// dimension is padded with zeros to HDP (a multiple of 16, of 32 above
+// 128) in shared memory; hd must be a multiple of 8 (16-byte rows).
+//
+// f32 inputs: the CUDA-core body (flash_fwd_kernel), f32 throughout (f32
+// parity at 1e-4 excludes TF32 products): one block (128 threads) per
+// (tile of QT query positions, kv head, batch row), K/V tiles in shared
+// memory in f32, a 4 x 8 register tile of scores a thread, the online
+// softmax one warp per row, p.V into registers.
+//
+// Both skip tiles from the positions themselves, never from indices: a tile
+// whose valid kpos span lies wholly above the block's largest qpos, or
+// outside every row's window or chunk, is never loaded, so positions need
+// not equal indices (the TPU kernel assumes they do); the tensor-core body
+// also skips the per-element mask on a tile every row sees whole. Any sq,
+// sk: the last tiles are bounds-checked.
 #include <limits.h>
 
+#include "mma_tile.cuh"
 #include "paged_attend.cuh"
 
 struct FlashArgs {
@@ -312,17 +333,283 @@ static int fa_launch_n(const FlashArgs& a, dim3 grid, size_t smem,
     return (int)cudaGetLastError();
 }
 
-// Returns a cudaError_t, or -1 when the shape is not supported (too many
-// accumulators or too much shared memory).
+// ---- bf16: the tensor-core body --------------------------------------------
+
+#define FT_WARPS 8
+#define FT_THREADS (FT_WARPS * 32)
+#define FT_ROWS (FT_WARPS * 16)      // query rows a block serves
+
+// q_s[FT_ROWS][LD], k_s[2][BN][LD], v_s[2][BN][LD] (bf16), kp_s[2][BN]
+// (int: the tiles' key positions), then the walk's flags fl_s[ntile]
+static constexpr size_t ft_smem_bytes(int hdp, int bn) {
+    return 2 * ((size_t)FT_ROWS + 4 * bn) * MT_LD(hdp) + 8 * (size_t)bn;
+}
+
+// Two blocks an SM up to hd 128 (at most 128 registers a thread: 64-key
+// tiles to hd 96, 32-key tiles above), one above: with a single block of
+// 8 warps an SM, the SM idles at every barrier of the block.
+template <int HDP, int BN>
+__global__ void __launch_bounds__(FT_THREADS, HDP <= 128 ? 2 : 1)
+flash_fwd_tc_kernel(FlashArgs a) {
+    constexpr int LD = MT_LD(HDP), NT = HDP / 8, ST = BN / 8;
+    extern __shared__ float4 smem4[];
+    __nv_bfloat16* q_s = (__nv_bfloat16*)smem4;
+    __nv_bfloat16* k_s = q_s + FT_ROWS * LD;
+    __nv_bfloat16* v_s = k_s + 2 * BN * LD;
+    int* kp_s = (int*)(v_s + 2 * BN * LD);
+    unsigned char* fl_s = (unsigned char*)(kp_s + 2 * BN);
+    const __nv_bfloat16* kg = (const __nv_bfloat16*)a.k;
+    const __nv_bfloat16* vg = (const __nv_bfloat16*)a.v;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int hd = a.hd, G = a.G, K = a.K, H = K * G, QR = a.QR;
+    // the last query tiles first: under a causal mask they see the most
+    // keys, and a wave that ends on them leaves the card idle
+    const int t0 = ((int)gridDim.x - 1 - (int)blockIdx.x) * a.QT;
+    const int kh = blockIdx.y, bi = blockIdx.z;
+    const int* kpos = a.kpos + (size_t)bi * a.sk;
+
+    // ---- query rows (zeros past QR and sq), the k padding of every tile
+    mt_copy_rows(q_s, LD, (const __nv_bfloat16*)a.q, FT_ROWS, hd,
+                 [&](int ml) -> long long {
+        const int t = t0 + ml / G;
+        if (ml >= QR || t >= a.sq) return -1;
+        return (((long long)bi * a.sq + t) * H + kh * G + ml % G) * hd;
+    }, tid, FT_THREADS);
+    mt_cp_commit();
+    if (HDP > hd) {
+        mt_zero_cols(q_s, LD, FT_ROWS, hd, HDP, tid, FT_THREADS);
+        mt_zero_cols(k_s, LD, 4 * BN, hd, HDP, tid, FT_THREADS);  // k and v
+    }
+    // this thread's rows: g and g + 8 of the warp's 16
+    int qp[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int ml = warp * 16 + g + 8 * i, t = t0 + ml / G;
+        qp[i] = (ml < QR && t < a.sq) ? a.qpos[(size_t)bi * a.sq + t] : -1;
+    }
+    const bool warp_live = warp * 16 < QR && t0 + warp * 16 / G < a.sq;
+    const MtSpan qs = mt_span(a.qpos + (size_t)bi * a.sq + t0,
+                              min(a.QT, a.sq - t0), lane);
+    // ---- the walk over the key tiles, from the positions alone
+    const int ntile = qs.hi >= 0 ? (a.sk + BN - 1) / BN : 0;
+    mt_schedule(fl_s, kpos, a.sk, BN, ntile, qs, true, a.window, a.chunk,
+                tid, FT_THREADS);
+    __syncthreads();
+
+    // K and V rows of tile j into stage st (zeros past sk); the tile's key
+    // positions go to kp_s a round later, out of the copy's way
+    auto load = [&](int j, int st) {
+        const int k0 = j * BN;
+        auto off = [&](int r) -> long long {
+            if (k0 + r >= a.sk) return -1;
+            return (((long long)bi * a.sk + k0 + r) * K + kh) * hd;
+        };
+        mt_copy_rows(k_s + st * BN * LD, LD, kg, BN, hd, off, tid,
+                     FT_THREADS);
+        mt_copy_rows(v_s + st * BN * LD, LD, vg, BN, hd, off, tid,
+                     FT_THREADS);
+    };
+    auto key_pos = [&](int j) -> int {
+        const int key = j * BN + tid;
+        return (tid < BN && key < a.sk) ? kpos[key] : -1;
+    };
+
+    float o[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    float m[2] = {PA_NEG_INF, PA_NEG_INF}, l[2] = {0.f, 0.f};
+    int cur = mt_next(fl_s, 0, ntile);
+    if (cur < ntile) {
+        load(cur, 0);
+        if (tid < BN) kp_s[tid] = key_pos(cur);
+    }
+    mt_cp_commit();
+    for (int st = 0; cur < ntile; st ^= 1) {
+        const int nxt = mt_next(fl_s, cur + 1, ntile);
+        int kp_next = -1;
+        if (nxt < ntile) {
+            load(nxt, st ^ 1);
+            kp_next = key_pos(nxt);
+        }
+        mt_cp_commit();
+        mt_cp_wait<1>();             // Q and this tile have landed
+        __syncthreads();
+        const __nv_bfloat16* ks = k_s + st * BN * LD;
+        const __nv_bfloat16* vs = v_s + st * BN * LD;
+        const int* kps = kp_s + st * BN;
+        const unsigned char f = fl_s[cur];
+        if (f & MT_HOLES) {          // rare: padded keys inside sk
+            mt_zero_holes(k_s + st * BN * LD, LD, kps, BN, HDP, tid,
+                          FT_THREADS);
+            mt_zero_holes(v_s + st * BN * LD, LD, kps, BN, HDP, tid,
+                          FT_THREADS);
+            __syncthreads();
+        }
+        const bool full = f & MT_FULL;
+        if (warp_live) {
+            // ---- S = Q . K^T
+            float s[ST][4];
+#pragma unroll
+            for (int j = 0; j < ST; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+            for (int kc = 0; kc < HDP / 16; ++kc) {
+                uint32_t af[4];
+                mt_frag_a(af, q_s, LD, warp * 16, kc * 16, lane);
+#pragma unroll
+                for (int np = 0; np < BN / 16; ++np) {
+                    uint32_t bf[4];
+                    mt_frag_b(bf, ks, LD, np * 16, kc * 16, lane);
+                    mt_mma(s[2 * np], af, bf);
+                    mt_mma(s[2 * np + 1], af, bf + 2);
+                }
+            }
+            // ---- scale, mask, online softmax (a row's four lanes)
+            float mx[2] = {PA_NEG_INF, PA_NEG_INF};
+#pragma unroll
+            for (int j = 0; j < ST; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int i = e >> 1;
+                    float x = s[j][e] * a.scale;
+                    if (!full) {
+                        const int kp = kps[j * 8 + 2 * t4 + (e & 1)];
+                        bool vis = kp >= 0 && kp <= qp[i];
+                        if (a.window > 0) vis = vis && kp > qp[i] - a.window;
+                        if (a.chunk > 0)
+                            vis = vis && kp / a.chunk == qp[i] / a.chunk;
+                        if (!vis) x = PA_NEG_INF;
+                    }
+                    s[j][e] = x;
+                    mx[i] = fmaxf(mx[i], x);
+                }
+            float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+                const float m_new = fmaxf(m[i], mx[i]);
+                corr[i] = expf(m[i] - m_new);    // both -1e30 -> 1
+                m[i] = m_new;
+            }
+#pragma unroll
+            for (int j = 0; j < ST; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int i = e >> 1;
+                    const float x = s[j][e];
+                    const float p = (x > -1e29f) ? expf(x - m[i]) : 0.f;
+                    s[j][e] = p;
+                    rs[i] += p;
+                }
+#pragma unroll
+            for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+                o[n][0] *= corr[0];
+                o[n][1] *= corr[0];
+                o[n][2] *= corr[1];
+                o[n][3] *= corr[1];
+            }
+            // ---- O += P . V, P as bf16 hi + lo
+#pragma unroll
+            for (int kk = 0; kk < BN / 16; ++kk) {
+                uint32_t hi[4], lo[4];
+                mt_c_to_a(s, kk, hi, lo);
+#pragma unroll
+                for (int np = 0; np < HDP / 16; ++np) {
+                    uint32_t bf[4];
+                    mt_frag_b_t(bf, vs, LD, kk * 16, np * 16, lane);
+                    mt_mma(o[2 * np], hi, bf);
+                    mt_mma(o[2 * np], lo, bf);
+                    mt_mma(o[2 * np + 1], hi, bf + 2);
+                    mt_mma(o[2 * np + 1], lo, bf + 2);
+                }
+            }
+        }
+        if (nxt < ntile && tid < BN) kp_s[(st ^ 1) * BN + tid] = kp_next;
+        __syncthreads();             // this stage is refilled next round
+        cur = nxt;
+    }
+    mt_cp_wait<0>();
+
+    // ---- finalise: a row that saw nothing gives 0 (and lse -1e30)
+    __nv_bfloat16* og = (__nv_bfloat16*)a.o;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        const int ml = warp * 16 + g + 8 * i, t = t0 + ml / G;
+        if (ml >= QR || t >= a.sq) continue;
+        const size_t row = ((size_t)bi * a.sq + t) * H + kh * G + ml % G;
+        const float inv = 1.f / fmaxf(l[i], 1e-30f);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+            const int c = n * 8 + 2 * t4;
+            if (c < hd)
+                *(uint32_t*)(og + row * hd + c) =
+                    mt_pack(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+        }
+        if (t4 == 0 && a.lse != nullptr)
+            a.lse[row] = m[i] + logf(fmaxf(l[i], 1e-30f));
+    }
+}
+
+template <int HDP, int BN>
+static int ft_launch(const FlashArgs& a, cudaStream_t stream) {
+    static_assert(ft_smem_bytes(HDP, BN) <= 227 * 1024,
+                  "shared memory of one block");
+    const size_t smem = ft_smem_bytes(HDP, BN) + (a.sk + BN - 1) / BN;
+    if (smem > 227 * 1024) return -1;
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_tc_kernel<HDP, BN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((a.sq + a.QT - 1) / a.QT, a.K, a.b);
+    flash_fwd_tc_kernel<HDP, BN><<<grid, FT_THREADS, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+static int ft_dispatch(FlashArgs a, cudaStream_t st) {
+    if (a.G > FT_ROWS) return -1;
+    int qt = FT_ROWS / a.G;
+    if (qt > a.sq) qt = a.sq;
+    a.QT = qt;
+    a.QR = qt * a.G;
+    switch (mt_hdp(a.hd)) {
+    case 16: return ft_launch<16, 64>(a, st);
+    case 32: return ft_launch<32, 64>(a, st);
+    case 48: return ft_launch<48, 64>(a, st);
+    case 64: return ft_launch<64, 64>(a, st);
+    case 80: return ft_launch<80, 64>(a, st);
+    case 96: return ft_launch<96, 64>(a, st);
+    case 112: return ft_launch<112, 32>(a, st);
+    case 128: return ft_launch<128, 32>(a, st);
+    case 160: return ft_launch<160, 64>(a, st);
+    case 192: return ft_launch<192, 64>(a, st);
+    case 224: return ft_launch<224, 64>(a, st);
+    case 256: return ft_launch<256, 64>(a, st);
+    default: return -1;
+    }
+}
+
+// Returns a cudaError_t, or -1 when the shape is not supported (bf16: hd
+// not a multiple of 8 or above 256, or more than 128 query heads per kv
+// head; f32: too many accumulators or too much shared memory). *body is
+// set to the body the dtype chose: 1 tensor cores (bf16), 0 CUDA cores
+// (f32).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, float* lse,
     const int* qpos, const int* kpos, int b, int sq, int sk, int K, int G,
-    int hd, int dtype, int window, int chunk, float scale, void* stream) {
+    int hd, int dtype, int window, int chunk, float scale, int* body,
+    void* stream) {
     FlashArgs a;
     a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
     a.qpos = qpos; a.kpos = kpos;
     a.b = b; a.sq = sq; a.sk = sk; a.K = K; a.G = G; a.hd = hd;
     a.dtype = dtype; a.window = window; a.chunk = chunk; a.scale = scale;
+    *body = dtype == PA_BF16 ? 1 : 0;
+    if (dtype == PA_BF16) return ft_dispatch(a, (cudaStream_t)stream);
     // rows a block serves and keys a tile holds: 64 at hd 128 (as the
     // paged kernels), fewer above so that the accumulators fit
     int rows = 8192 / hd;

@@ -9,7 +9,9 @@ kernel reads). On this card the function is bound by operations for prompts abov
 a few hundred positions and by bytes for short ones; the kernel keeps the
 online-softmax state on chip, reads each K/V tile once for the G query heads
 that share it, and skips tiles from the positions themselves
-(csrc/flash_attention.cu).
+(csrc/flash_attention.cu). bf16 inputs run its tensor-core body (mma.sync,
+cp.async), f32 inputs its CUDA-core body; the launch reports which one ran
+(`last_body`).
 
 The wrapper launches the kernel for CUDA tensors and raises if it cannot;
 it takes the plain version only for tensors that lie on the CPU.
@@ -32,6 +34,9 @@ NEG_INF = -1e30
 # launches of the CUDA kernel made by flash_attention_fwd (and by nothing
 # else): a run can show that its path went through the kernel
 launches = 0
+# the body the last launch ran, as the C entry point reports it
+BODIES = {0: "cuda-core f32", 1: "tensor-core bf16"}
+last_body = None
 
 _fn = None
 
@@ -41,7 +46,8 @@ def _bound():
     if _fn is None:
         fn = build.library(SOURCE).flash_attention_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 7 + [i] * 9 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 7 + [i] * 9 + [ctypes.c_float,
+                                           ctypes.POINTER(i), p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -86,6 +92,14 @@ def flash_attention_plain(q, k, v, qpos, kpos, *,
     return out, lse
 
 
+def check_head_dim(dtype, hd: int) -> None:
+    """The tensor-core bodies (bf16) read rows in 16-byte pieces: hd must
+    be a multiple of 8 (and at most 256)."""
+    if dtype == torch.bfloat16 and (hd % 8 or hd > 256):
+        raise ValueError(f"bf16 head_dim {hd} not supported (a multiple of "
+                         "8, at most 256)")
+
+
 def _aligned(t):
     """Contiguous, with a 16-byte aligned base (the kernel's vector loads)."""
     t = t.contiguous()
@@ -99,7 +113,7 @@ def flash_attention_fwd(q, k, v, qpos, kpos, *,
     """q [b,sq,H,hd] (f32 or bf16); k/v [b,sk,K,hd] in q's dtype, H a
     multiple of K (query head h reads kv head h // (H // K)); qpos [b,sq],
     kpos [b,sk] int32 (-1 = padding). Returns out [b,sq,H,hd] in q's dtype
-    (+ lse [b,sq,H] f32 when return_lse).
+    (+ lse [b,sq,H] f32 when return_lse). bf16 needs hd a multiple of 8.
 
     CUDA tensors go to the CUDA kernel (built at first use; a failed build
     or launch raises); CPU tensors to the plain version. Any sq and sk: the
@@ -107,12 +121,13 @@ def flash_attention_fwd(q, k, v, qpos, kpos, *,
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, qpos, kpos, window=window,
                                      chunk=chunk, return_lse=return_lse)
-    global launches
+    global launches, last_body
     if q.dtype not in _Q_DTYPES:
         raise TypeError(f"q dtype {q.dtype} not supported (f32, bf16)")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("k/v must have q's dtype")
     b, sq, H, hd = q.shape
+    check_head_dim(q.dtype, hd)
     sk, K = k.shape[1], k.shape[2]
     if tuple(k.shape) != (b, sk, K, hd) or v.shape != k.shape:
         raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} must be "
@@ -134,16 +149,18 @@ def flash_attention_fwd(q, k, v, qpos, kpos, *,
     lse = (torch.empty((b, sq, H), dtype=torch.float32, device=q.device)
            if return_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    body = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         rc = _bound()(
             build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o),
             build.ptr(lse), build.ptr(qpos), build.ptr(kpos), b, sq, sk, K,
             H // K, hd, _Q_DTYPES[q.dtype], int(window or 0),
             int(chunk or 0), ctypes.c_float(1.0 / np.sqrt(hd)),
-            ctypes.c_void_p(stream))
+            ctypes.byref(body), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(
             f"flash_attention_launch failed (code {rc}; -1 = shape not "
             f"supported) for q {tuple(q.shape)}, k {tuple(k.shape)}")
     launches += 1
+    last_body = BODIES[body.value]
     return (o, lse) if return_lse else o

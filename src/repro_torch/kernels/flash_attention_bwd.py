@@ -10,7 +10,9 @@ log-sum-exp, recomputing p = exp(s - lse) under the same position mask
 the kernels keep the [queries, keys] tiles on chip, take GQA natively (dK/dV
 per kv head, summed over its G query heads inside the kernel, where the
 reference repeats K/V to every head) and skip tiles from the positions
-themselves (csrc/flash_attention_bwd.cu).
+themselves (csrc/flash_attention_bwd.cu). bf16 inputs run their tensor-core
+bodies (mma.sync, cp.async), f32 inputs their CUDA-core bodies; the launch
+reports which one ran (`last_body`).
 
 The wrapper launches the kernels for CUDA tensors and raises if it cannot;
 it takes the plain version only for tensors that lie on the CPU.
@@ -24,7 +26,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import _aligned, compute_dtype
+from repro_torch.kernels.flash_attention import (BODIES, _aligned,
+                                                 check_head_dim,
+                                                 compute_dtype)
 from repro_torch.kernels.paged_decode import _Q_DTYPES
 
 SOURCE = "flash_attention_bwd.cu"
@@ -32,6 +36,12 @@ SOURCE = "flash_attention_bwd.cu"
 # launches of the CUDA kernels made by flash_attention_bwd (one per call:
 # the dQ and dK/dV kernels go out together), and by nothing else
 launches = 0
+# the body the last launch ran (flash_attention.BODIES), as the C entry
+# point reports it
+last_body = None
+# query heads per kv head the bf16 body takes: its dK/dV kernel packs a
+# query tile's G heads into 32 rows (the f32 body takes up to 64)
+BF16_MAX_G = 32
 
 _fn = None
 
@@ -41,7 +51,8 @@ def _bound():
     if _fn is None:
         fn = build.library(SOURCE).flash_attention_bwd_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 11 + [i] * 9 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 11 + [i] * 9 + [ctypes.c_float,
+                                            ctypes.POINTER(i), p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -90,7 +101,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, qpos, kpos, *,
     -1e30 for a row that sees nothing); qpos [b,sq], kpos [b,sk] int32
     (-1 = padding). Returns (dq [b,sq,H,hd], dk, dv [b,sk,K,hd]) in q's
     dtype; a pair that is not visible contributes nothing, so a row that
-    sees nothing gets zero gradients.
+    sees nothing gets zero gradients. bf16 needs hd a multiple of 8 and at
+    most BF16_MAX_G (32) query heads per kv head.
 
     CUDA tensors go to the CUDA kernels (built at first use; a failed build
     or launch raises); CPU tensors to the plain version. D = rowsum(dO * O)
@@ -98,19 +110,23 @@ def flash_attention_bwd(q, k, v, out, lse, do, qpos, kpos, *,
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, out, lse, do, qpos, kpos,
                                          window=window, chunk=chunk)
-    global launches
+    global launches, last_body
     if q.dtype not in _Q_DTYPES:
         raise TypeError(f"q dtype {q.dtype} not supported (f32, bf16)")
     for name, t in (("k", k), ("v", v), ("out", out), ("do", do)):
         if t.dtype != q.dtype:
             raise TypeError(f"{name} dtype {t.dtype}, q {q.dtype}: one dtype")
     b, sq, H, hd = q.shape
+    check_head_dim(q.dtype, hd)
     sk, K = k.shape[1], k.shape[2]
     if tuple(k.shape) != (b, sk, K, hd) or v.shape != k.shape:
         raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} must be "
                          f"[{b}, sk, K, {hd}]")
     if K < 1 or H % K:
         raise ValueError(f"{H} query heads do not split over {K} kv heads")
+    if q.dtype == torch.bfloat16 and H // K > BF16_MAX_G:
+        raise ValueError(f"bf16 backward with {H // K} query heads per kv "
+                         f"head not supported (at most {BF16_MAX_G})")
     if out.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} and do {tuple(do.shape)} "
                          f"must be q's shape {tuple(q.shape)}")
@@ -136,6 +152,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, qpos, kpos, *,
     # autograd runs a backward on its own thread: the stream is the one
     # current on q's device there (autograd makes it the forward's stream)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    body = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         rc = _bound()(
             build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(do),
@@ -143,10 +160,11 @@ def flash_attention_bwd(q, k, v, out, lse, do, qpos, kpos, *,
             build.ptr(dq), build.ptr(dk), build.ptr(dv), b, sq, sk, K,
             H // K, hd, _Q_DTYPES[q.dtype], int(window or 0),
             int(chunk or 0), ctypes.c_float(1.0 / np.sqrt(hd)),
-            ctypes.c_void_p(stream))
+            ctypes.byref(body), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(
             f"flash_attention_bwd_launch failed (code {rc}; -1 = shape not "
             f"supported) for q {tuple(q.shape)}, k {tuple(k.shape)}")
     launches += 1
+    last_body = BODIES[body.value]
     return dq, dk, dv

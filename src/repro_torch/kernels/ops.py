@@ -108,11 +108,28 @@ def mlstm_scan(q, k, v, i_gate, f_gate, *, chunk: int = 128,
     is a fresh sequence. backend "kernel" folds the heads into
     mlstm_scan_fwd (the CUDA kernel on the card), "naive" into its plain
     version. Returns (out [b,s,h,dv], state (C [b,h,dk,dv], n [b,h,dk],
-    m [b,h,1])), new tensors."""
+    m [b,h,1])), new tensors.
+
+    A length above the chunk that the chunk does not divide (a whole prompt
+    of 200 at chunk 128) is padded to a multiple of it with
+    state-transparent steps, as chunked prefill pads its chunks (i = -1e30,
+    f = 1e4: the state passes through them unchanged), where the
+    reference's scan refuses it (its fault F6); mlstm_scan_fwd and the
+    plain version themselves still refuse such a length, as the
+    reference's scan does."""
     if backend not in MLSTM_BACKENDS:
         raise ValueError(f"mlstm backend {backend!r} not in {MLSTM_BACKENDS}")
     b, s, h, dk = q.shape
     dv = v.shape[-1]
+    pad = (-s) % int(chunk) if s > int(chunk) else 0
+    if pad:
+        def tail(t, fill):
+            return torch.cat([t, t.new_full((b, pad) + tuple(t.shape[2:]),
+                                            fill)], dim=1)
+        out, st = mlstm_scan(tail(q, 0.0), tail(k, 0.0), tail(v, 0.0),
+                             tail(i_gate, NEG_INF), tail(f_gate, 1e4),
+                             chunk=chunk, backend=backend, initial=initial)
+        return out[:, :s], st
 
     def fold(t):
         return t.movedim(2, 1).reshape((b * h, s) + tuple(t.shape[3:]))

@@ -97,6 +97,21 @@ def mlstm_state_init(cfg: ModelConfig, batch: int, device):
     return _zeros(mlstm_state_shapes(cfg, batch), device)
 
 
+def _promoted(params, x, weight: str):
+    """jnp's type promotion at a block's entry: x and the block's projection
+    weight `weight` meet in their common type, so an f32 x over bf16
+    weights computes in f32 (the reference's x @ w promotes), with every
+    floating leaf of lower precision raised to it. The model paths pass x
+    in the weights' dtype: nothing changes and nothing is copied."""
+    dt = torch.promote_types(x.dtype, params[weight].dtype)
+    if dt == x.dtype == params[weight].dtype:
+        return params, x
+    up = {k: v.to(dt) if (v.is_floating_point() and v.dtype != dt and
+                          torch.promote_types(v.dtype, dt) == dt) else v
+          for k, v in params.items()}
+    return up, x.to(dt)
+
+
 def mlstm_apply(params, cfg: ModelConfig, x, state=None, decode: bool = False,
                 backend: str = "kernel", chunk: int = 128, positions=None):
     """x [b, s, d] -> (y, new_state or None).
@@ -109,6 +124,7 @@ def mlstm_apply(params, cfg: ModelConfig, x, state=None, decode: bool = False,
     `backend` "kernel" scans through the CUDA kernel on the card, "naive"
     through its plain version.
     """
+    params, x = _promoted(params, x, "w_up")
     b, s, d = x.shape
     inner = int(cfg.mlstm_proj_factor * d)
     H = cfg.n_heads
@@ -245,6 +261,7 @@ def slstm_apply(params, cfg: ModelConfig, x, state=None, decode: bool = False,
     (serving prefill), rows starting at position 0 restart from a zero
     state and -1 positions (trailing padding) leave the carried state
     untouched (a per-step select)."""
+    params, x = _promoted(params, x, "w")
     b, s, d = x.shape
     hin = layers.rmsnorm(params["norm"], x, cfg.norm_eps)
     xw = layers.matmul(hin, params["w"])                      # [b, s, 4d]
@@ -349,7 +366,9 @@ def rglru_apply(params, cfg: ModelConfig, x, state=None, decode: bool = False,
     steps become identity elements of the scan (a = 1, B = 0) and rows
     starting at position 0 restart from h = 0 and an empty conv history.
     The diagonal recurrence runs as a log-step associative scan in f32
-    (linear_scan), as the reference's jax.lax.associative_scan."""
+    (linear_scan), as the reference's jax.lax.associative_scan. An f32 x
+    over bf16 weights computes in f32, as jnp promotes."""
+    params, x = _promoted(params, x, "w_x")
     b, s, d = x.shape
     wdt = params["w_x"].shape[1]
     f32 = torch.float32

@@ -6,6 +6,8 @@ port's copies of the engine, allocator and fault code against the reference
 package's on a chaos trace (scripted executor, no model)."""
 import dataclasses
 
+import numpy as np
+
 import pytest
 
 from repro.models import ModelSettings as JMS
@@ -185,6 +187,66 @@ def test_allocator_prefix_cannot_over_commit(mode):
     assert b.audit() == []
     b.free(3)
     assert b.acquire_prefix("p3") and b.committed == 5 <= b.n_blocks
+
+
+# ROADMAP C F4: the repro on which "expected" mode commits 9 of 8 blocks
+# (an overdraft the allocator's docstring allows and the engine's pressure
+# signal reads), then seeded op sequences in the alphabet of the
+# reference's unseeded hypothesis test (tests/test_overload.py)
+F4_REPRO = [("reserve", 3, 4), ("reserve", 0, 1)] + [("alloc", 0, 0)] * 5
+F4_OPS = ("reserve", "alloc", "free", "mkpfx", "acq", "rel")
+
+
+def _f4_ops(case):
+    if case == "repro":
+        return F4_REPRO
+    rng = np.random.default_rng(case)
+    return [(F4_OPS[int(rng.integers(6))], int(x), int(x) + 1)
+            for x in rng.integers(0, 4, int(rng.integers(10, 41)))]
+
+
+@pytest.mark.parametrize("case", ["repro"] + list(range(12)))
+@pytest.mark.parametrize("mode", ["worst", "expected"])
+def test_allocator_ledger_invariants_derandomized(mode, case):
+    """Derandomized twin of the reference's
+    test_allocator_property_invariants over the port's allocator (fault
+    F4): after every op, accepted or refused, the ledger partitions the
+    pool, no block is owned twice, refcounts stay >= 0 and the audit is
+    clean; "worst" mode never commits more than the pool, "expected" mode
+    may overdraft its reservations (documented, and read by the pressure
+    ladder as committed > n_blocks) but never holds more blocks than the
+    pool has. The port keeps the reference's behaviour: the repro commits
+    9 of 8 blocks there, with a clean audit."""
+    a = TS.BlockAllocator(8, 2, reservation=mode)
+    for op, x, n in _f4_ops(case):
+        try:
+            if op == "reserve":
+                a.reserve(x, n)
+            elif op == "alloc":
+                a.alloc(x)
+            elif op == "free":
+                a.free(x)
+            elif op == "mkpfx":
+                a.create_prefix(f"p{x}", n)
+            elif op == "acq":
+                a.acquire_prefix(f"p{x}")
+            else:
+                a.release_prefix(f"p{x}")
+        except (RuntimeError, KeyError):
+            pass                             # refused ops must not corrupt
+        owned = [b for ids in a._owned.values() for b in ids]
+        pfx = [b for p in a._prefix.values() for b in p["blocks"]]
+        assert a.free_blocks + len(owned) + len(pfx) == a.n_blocks
+        assert len(set(owned) | set(pfx)) == len(owned) + len(pfx)
+        assert all(p["refs"] >= 0 for p in a._prefix.values())
+        assert a.available_blocks >= a.free_blocks
+        assert a.audit() == []
+        if mode == "worst":
+            assert a.committed <= a.n_blocks
+        else:
+            assert a.in_use <= a.n_blocks
+    if case == "repro":
+        assert a.committed == (9 if mode == "expected" else 5)
 
 
 # ---------------------------------------------------------------------------

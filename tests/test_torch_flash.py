@@ -145,3 +145,20 @@ def test_flash_wrapper_takes_the_plain_version_only_on_the_cpu():
     seq = A._seq_attention(qt, kt, vt, pos, pos, BlockSpec(),
                            A.AttnSettings(backend="kernel"))
     assert torch.equal(seq, out.reshape(b, s, K, G, hd))
+
+
+def test_tensor_core_bodies_take_head_dims_in_16_byte_rows():
+    """bf16 launches run the tensor-core bodies, which copy rows in 16-byte
+    pieces: a bf16 head_dim that is no multiple of 8 (or above 256) is
+    refused before any launch; f32 takes any head_dim; the shared-memory
+    header is part of the build's digest."""
+    from repro_torch.kernels import flash_attention_bwd as FB
+    assert "mma_tile.cuh" in build.HEADERS
+    for hd in (8, 80, 128, 256):
+        FA.check_head_dim(torch.bfloat16, hd)
+    for hd in (4, 84, 264):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            FA.check_head_dim(torch.bfloat16, hd)
+        FA.check_head_dim(torch.float32, hd)
+    assert FB.check_head_dim is FA.check_head_dim
+    assert set(FA.BODIES.values()) == {"tensor-core bf16", "cuda-core f32"}

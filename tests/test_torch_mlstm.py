@@ -132,17 +132,32 @@ def test_mlstm_scan_padding_and_fresh_state():
 
 
 def test_chunk_contract_both_packages_refuse_p200():
-    """Reference fault F6, kept: a scan whose length min(chunk, s) does not
-    divide is refused, by the reference with an assertion and by the port
-    with ValueError, on every path (200 positions at chunk 128)."""
+    """Reference fault F6: a scan of 200 positions at chunk 128 (min(chunk,
+    s) does not divide s) is refused by the reference's scan on every path
+    (an assertion), and by the port's scan itself (mlstm_scan_fwd and its
+    plain version, ValueError). The port's op (ops.mlstm_scan, which the
+    model calls) serves it: the tail is padded to the chunk with
+    state-transparent steps, and out and the state equal the reference's
+    chunked path for the same input (128 positions, then 72 from the
+    carried state)."""
     arrs = _inputs(1, 1, 200, 1, 8, 8)
     for backend in ("blocked", "interpret"):
         with pytest.raises(AssertionError):
             _ref(arrs, 128, backend)
-    for backend in ("naive", "kernel"):
+    t = [torch.from_numpy(a).movedim(2, 1).reshape((1, 200) + a.shape[3:])
+         for a in arrs]
+    for fn in (MS.mlstm_scan_plain, MS.mlstm_scan_fwd):
         with pytest.raises(ValueError, match="divide"):
-            _port(arrs, 128, backend)
+            fn(*t, chunk=128)
     assert MS.chunk_of(128, 200 - 72) == 128 and MS.chunk_of(128, 72) == 72
+    head = _ref(tuple(a[:, :128] for a in arrs), 128, "interpret")
+    tail = _ref(tuple(a[:, 128:] for a in arrs), 128, "interpret",
+                initial=head[1:])
+    want = [np.concatenate([head[0], tail[0]], axis=1)] + tail[1:]
+    for backend in ("naive", "kernel"):
+        got = _port(arrs, 128, backend)
+        assert got[0].shape == (1, 200, 1, 8)
+        _close(got, want)
     with pytest.raises(ValueError):
         ops.mlstm_scan(*(torch.from_numpy(a) for a in arrs), chunk=128,
                        backend="pallas")

@@ -7,6 +7,8 @@ token-identical to the reference engine and to the port's greedy_generate;
 the per-lane pool leaves (inert decode rows keep their state, the scatter
 drops padding lanes, the hand-over keeps each leaf's dtype); and the
 refusals the reference makes too (prefix sharing, reference fault F6)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -183,6 +185,52 @@ def test_block_matches_reference(kind, mode):
                                        rtol=1e-6, err_msg=k)
 
 
+def _stream(fn, params, cfg, x, state):
+    """x one step at a time through a block's decode form."""
+    outs = []
+    for t in range(x.shape[1]):
+        o, state = fn(params, cfg, x[:, t:t + 1], state=state, decode=True)
+        outs.append(o)
+    return outs, state
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_block_f32_input_matches_reference(kind):
+    """Twins of the reference's decode-against-sequence tests
+    (tests/test_recurrent.py, mLSTM and sLSTM), which feed an f32 x over
+    bf16 weights: jnp promotes, and the port promotes at the block's entry
+    (fault F10). The sequence form and a one-step-at-a-time decode from
+    the zero state, each against the reference's and against each other,
+    at the reference test's 2e-2; outputs and the new state in f32 on both
+    sides."""
+    cj, pj, ct, pt = _block_pair(kind)
+    s = 12 if kind == "mlstm" else 10
+    x = np.random.default_rng(8).standard_normal(
+        (2, s, ct.d_model)).astype(np.float32)
+    fj, ft = ((JR.mlstm_apply, TR.mlstm_apply) if kind == "mlstm"
+              else (JR.slstm_apply, TR.slstm_apply))
+    kw_j, kw_t = (({"backend": "blocked", "chunk": 4},
+                   {"backend": "naive", "chunk": 4}) if kind == "mlstm"
+                  else ({}, {}))
+    yj, _ = fj(pj, cj, jnp.asarray(x), **kw_j)
+    yt, _ = ft(pt, ct, torch.from_numpy(x), **kw_t)
+    assert yt.dtype == torch.float32 and yj.dtype == jnp.float32
+    np.testing.assert_allclose(t_np(yt), to_np(yj), atol=2e-2, rtol=2e-2)
+    init_j = JR.mlstm_state_init if kind == "mlstm" else JR.slstm_state_init
+    init_t = TR.mlstm_state_init if kind == "mlstm" else TR.slstm_state_init
+    dj, sj = _stream(fj, pj, cj, jnp.asarray(x), init_j(cj, 2))
+    dt, st = _stream(ft, pt, ct, torch.from_numpy(x), init_t(ct, 2, "cpu"))
+    dec_t = torch.cat(dt, 1)
+    np.testing.assert_allclose(t_np(dec_t), to_np(jnp.concatenate(dj, 1)),
+                               atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(t_np(dec_t), t_np(yt), atol=2e-2, rtol=2e-2)
+    assert sorted(st) == sorted(sj)
+    for k in st:
+        assert st[k].dtype == torch.float32, k
+        np.testing.assert_allclose(t_np(st[k]), to_np(sj[k]), atol=2e-2,
+                                   rtol=2e-2, err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # The model
 # ---------------------------------------------------------------------------
@@ -311,16 +359,34 @@ def test_params_keep_reference_dtypes():
 
 
 def test_whole_prompt_of_200_refused_by_both_packages():
-    """Reference fault F6, kept: a whole-prompt prefill of 200 tokens at
+    """Reference fault F6: a whole-prompt prefill of 200 tokens at
     mlstm_chunk 128 (128 < p <= the engine's chunk, p % 128 != 0) is
-    refused by the reference (an assertion in the blocked scan) and by the
-    port (ValueError)."""
+    refused by the reference (an assertion in the blocked scan). The port
+    serves it (the scan's tail padded with state-transparent steps): its
+    last-token logits and every layer's state equal the reference's
+    chunked path for the same prompt (128 tokens, then 72 from the carried
+    state), within the bf16 model's tolerance."""
     cj, pj, ct, pt = model_pair(ARCH)
     toks = _tokens(5, 1, 200, ct.vocab_size)
     with pytest.raises(AssertionError):
         JSS.make_prefill_step(cj, JNAIVE)(pj, jnp.asarray(toks), context=256)
-    with pytest.raises(ValueError, match="divide"):
-        SS.make_prefill_step(ct)(pt, torch.from_numpy(toks), context=256)
+    lt, cache = SS.make_prefill_step(ct)(pt, torch.from_numpy(toks),
+                                         context=256)
+    ps = dataclasses.replace(JNAIVE, build_cache=True)
+    _, c1, _ = japply(pj, cj, jnp.asarray(toks[:, :128]), settings=ps,
+                      context=256)
+    pos = jnp.asarray(np.arange(128, 200, dtype=np.int32)[None])
+    lj, cj2, _ = japply(pj, cj, jnp.asarray(toks[:, 128:]), positions=pos,
+                        cache=c1, settings=ps, context=256)
+    np.testing.assert_allclose(t_np(lt), to_np(lj[:, -1]), atol=5e-2,
+                               rtol=0)
+    for i, (leaf_t, leaf_j) in enumerate(zip(cache["units"],
+                                             cj2["units"])):
+        assert sorted(leaf_t) == sorted(leaf_j)
+        for k in leaf_t:
+            np.testing.assert_allclose(t_np(leaf_t[k]), to_np(leaf_j[k]),
+                                       atol=ATOL_BLOCK, rtol=2e-2,
+                                       err_msg=f"unit {i} {k}")
 
 
 # ---------------------------------------------------------------------------

@@ -182,6 +182,55 @@ def test_rglru_stability_long_sequence():
     assert torch.isfinite(out.float()).all()
 
 
+def test_rglru_block_f32_input_matches_reference():
+    """Twin of the reference's decode-against-sequence test
+    (tests/test_recurrent.py) as it runs there: an f32 x over bf16
+    weights, which jnp promotes and the port promotes at the block's entry
+    (fault F10; the twin above feeds bf16). The sequence form and a
+    one-step-at-a-time decode from the zero state, each against the
+    reference's and against each other at the reference test's 2e-2; the
+    outputs and the new state (h and the conv tail) in f32 on both
+    sides."""
+    cj, pj, ct, pt = _block_pair()
+    x = np.random.default_rng(5).standard_normal(
+        (2, 12, ct.d_model)).astype(np.float32)
+    yj, _ = JR.rglru_apply(pj, cj, jnp.asarray(x))
+    yt, none = TR.rglru_apply(pt, ct, torch.from_numpy(x))
+    assert none is None
+    assert yt.dtype == torch.float32 and yj.dtype == jnp.float32
+    np.testing.assert_allclose(t_np(yt), to_np(yj), atol=2e-2, rtol=2e-2)
+    sj, st = JR.rglru_state_init(cj, 2), TR.rglru_state_init(ct, 2, "cpu")
+    outs_j, outs_t = [], []
+    for t in range(x.shape[1]):
+        o, sj = JR.rglru_apply(pj, cj, jnp.asarray(x[:, t:t + 1]), state=sj,
+                               decode=True)
+        outs_j.append(o)
+        o, st = TR.rglru_apply(pt, ct, torch.from_numpy(x[:, t:t + 1]),
+                               state=st, decode=True)
+        outs_t.append(o)
+    dec = torch.cat(outs_t, 1)
+    np.testing.assert_allclose(t_np(dec), to_np(jnp.concatenate(outs_j, 1)),
+                               atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(t_np(dec), t_np(yt), atol=2e-2, rtol=2e-2)
+    for k in st:
+        assert st[k].dtype == torch.float32 and sj[k].dtype == jnp.float32
+        np.testing.assert_allclose(t_np(st[k]), to_np(sj[k]), atol=2e-2,
+                                   rtol=2e-2, err_msg=k)
+
+
+def test_rglru_stability_long_sequence_f32():
+    """Twin of the reference's stability test as it runs there: 512 steps
+    of an f32 x of scale 10 over bf16 weights stay finite, in f32, and
+    equal to the reference's at its 2e-2."""
+    cj, pj, ct, pt = _block_pair()
+    x = np.random.default_rng(6).standard_normal(
+        (1, 512, ct.d_model)).astype(np.float32) * 10.0
+    out, _ = TR.rglru_apply(pt, ct, torch.from_numpy(x))
+    want, _ = JR.rglru_apply(pj, cj, jnp.asarray(x))
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    np.testing.assert_allclose(t_np(out), to_np(want), atol=2e-2, rtol=2e-2)
+
+
 def test_params_keep_reference_dtypes():
     """The hand-over gives each RG-LRU leaf the reference's dtype (gate_r,
     gate_i and a_param f32, the rest bf16) and its values; the port's own
