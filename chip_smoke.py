@@ -30,11 +30,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      every flash case prints the body its C entry point reports and fails
      unless bf16 ran the tensor-core body and f32 the CUDA-core one; for the mLSTM scan the reference sweep (dk != dv too), with
      and without a carried state, fresh rows, padded steps, padding-only
-     rows, f32 / bf16 and xlstm-1.3b's serving shape [32, 256, 1024]; for
-     ring decode f32 / bf16, no mask / window / chunk, G = 1, 2, 4, 16,
-     head_dim 64, 128, 256, rings wrapped at heterogeneous positions,
-     inert lanes and empty rings (exact zeros), lengths no tile divides and
-     the ring shapes of phases 6, 9 and 10.
+     rows, f32 / bf16 and xlstm-1.3b's serving shape [32, 256, 1024], and
+     the two-pass design's edges (dv not a multiple of its 32-column state
+     tile, dk not a multiple of its 128-row update pass, one folded head,
+     chunks of 96); for ring decode f32 / bf16, no mask / window / chunk,
+     G = 1, 2, 4, 12, 16 (query-row groups of 1, 2, 4), head_dim 64, 80,
+     128, 256, every split count from 1 to the kernel's cap, rings wrapped
+     at heterogeneous positions, inert lanes and empty rings (exact zeros),
+     lengths no tile or warp group divides and the ring shapes of phases
+     6, 9 and 10.
   3. the main path at full width: mistral-nemo-12b, all 40 layers, random
      bf16 weights from a seed; the capacity model sizes the KV block pool;
      the engine serves a seeded trace of short and long prompts through
@@ -672,6 +676,9 @@ def mlstm_case(gen, name, *, bh, s, dk, dv, chunk, dt=torch.float32,
     got = mlstm_scan.mlstm_scan_fwd(q, k, v, ig, fg, chunk=chunk,
                                     initial=init)
     torch.cuda.synchronize()
+    # the tensor-core body takes bf16 rows of whole 16-byte pieces
+    body = check_body(name, mlstm_scan,
+                      dt if dk % 8 == 0 else torch.float32)
     want = mlstm_scan.mlstm_scan_plain(q, k, v, ig, fg, chunk=chunk,
                                        initial=init)
     if dt == torch.bfloat16:
@@ -683,6 +690,7 @@ def mlstm_case(gen, name, *, bh, s, dk, dv, chunk, dt=torch.float32,
     for r in pad_rows:
         if r in fresh and float(got[0][r].float().abs().max()) != 0.0:
             fail(f"{name}: padding-only fresh row {r} output not zero")
+    log(f"[2] {name}: {body} body, max abs err out {err:.3e}")
     return err
 
 
@@ -935,6 +943,28 @@ def phase_kernels():
     ml("serve [32, 256, 1024] c128 bf16 initial", bh=32, s=256, dk=1024,
        dv=1024, chunk=128, dt=torch.bfloat16, initial=True, fresh=(5, 17),
        pad_tail=55)
+    # the two-pass design's edges: dv not a multiple of the 32-column state
+    # tile, dk not a multiple of the 128-row update pass, one folded head,
+    # chunks of 96 (three 32-row score tiles, a partial position slice);
+    # f32 and bf16, with and without a carried state, fresh rows, padded
+    # tails and padding-only rows at full width
+    ml("dk1024 dv1000 bf16 initial", bh=2, s=256, dk=1024, dv=1000,
+       chunk=128, dt=torch.bfloat16, initial=True, fresh=(1,), pad_tail=20)
+    ml("dk200 dv72 c96 f32 initial", bh=3, s=192, dk=200, dv=72, chunk=96,
+       initial=True, fresh=(2,), pad_tail=5)
+    ml("dk512 dv256 c96 bf16", bh=2, s=192, dk=512, dv=256, chunk=96,
+       dt=torch.bfloat16)
+    for dt in (torch.float32, torch.bfloat16):
+        t = "f32" if dt == torch.float32 else "bf16"
+        ml(f"bh1 full width {t}", bh=1, s=256, dk=1024, dv=1024, chunk=128,
+           dt=dt)
+        ml(f"bh1 full width {t} initial fresh", bh=1, s=128, dk=1024,
+           dv=1024, chunk=128, dt=dt, initial=True, fresh=(0,))
+        ml(f"full width {t} padding-only rows initial", bh=4, s=128,
+           dk=1024, dv=1024, chunk=128, dt=dt, initial=True, fresh=(1,),
+           pad_rows=(1, 2), pad_tail=40)
+    ml("full width s9 c9 f32 initial", bh=4, s=9, dk=1024, dv=1024,
+       chunk=128, initial=True, fresh=(3,))
     def r(name, **kw):
         nonlocal n
         errs["decode_attention"] = max(errs["decode_attention"],
@@ -972,6 +1002,35 @@ def phase_kernels():
     r("G2 hd256 kv_block16", L=1000, ends=[1200, 999, 17], kv_block=16,
       **GM)
     r("G1 hd128 single slot", L=1, ends=[0, 5], K=4, G=1, hd=128)
+    # every split count from 1 to the kernel's cap (one lane, one kv head:
+    # a split takes two tiles of kv_block = 16), rings that wrapped,
+    # lengths no tile divides, the head widths and group sizes in turn
+    _, splits = decode_attention._bound()
+    cap = splits(1, 1, 64, 1 << 20, 16)
+    for ns in range(1, cap + 1):
+        L = 32 * ns - ns % 16
+        hd, G = (64, 128, 256)[ns % 3], (1, 2, 4, 16)[ns % 4]
+        if splits(1, 1, hd, L, 16) != ns:
+            fail(f"ring: L {L} at kv_block 16 takes "
+                 f"{splits(1, 1, hd, L, 16)} splits, want {ns}")
+        r(f"split {ns}/{cap} L{L} G{G} hd{hd}", L=L, ends=[L + 37 * ns],
+          K=1, G=G, hd=hd, kv_block=16)
+    # head widths 64 / 128 / 256 (4, 2 and 1 ring rows a warp step) x
+    # G 1 / 2 / 4 / 16 (1, 2, 4 and 4 x 4 query rows a block) on
+    # wrapped rings whose length no warp group divides, one lane inert
+    for hd in (64, 128, 256):
+        for G in (1, 2, 4, 16):
+            r(f"hd{hd} G{G} L517 wrapped, inert lane", L=517, K=2, G=G,
+              hd=hd, ends=[2000, 516, 900], inert=(1,))
+    # f32 rings at every query-row group, inert and empty lanes after a wrap
+    for G in (1, 2, 4, 16):
+        r(f"f32 ring G{G} hd128 L1031 inert and empty", L=1031, K=2, G=G,
+          hd=128, ends=[3000, 1031, 5000, 77], inert=(1,), empty=(2,),
+          qdt=torch.float32)
+    r("bf16 q f32 ring G16 hd64 window300 after a wrap", L=700, K=1, G=16,
+      hd=64, ends=[1500, 699], window=300, kvdt=torch.float32)
+    r("G12 hd80 (a partial query-row group, a partial lane group)", L=333,
+      K=2, G=12, hd=80, ends=[1000, 200])
     log(f"[2] {n} kernel-vs-plain cases agree on the card: max abs err "
         f"decode {errs['paged_decode']:.3e}, prefill "
         f"{errs['paged_prefill']:.3e}, flash {errs['flash_attention']:.3e} "
@@ -2399,9 +2458,18 @@ def time_mlstm(gen, bh, s, dk, dv, chunk=128):
     # update (2 operations per product), q.n and the n update
     flops = bh * nc * (2.0 * c * c * dk + 2.0 * c * c * dv
                        + 4.0 * c * dk * dv + 4.0 * c * dk)
-    # what the kernel computes: q k^T once per 32-column tile of dv
-    tiles = -(-dv // 32)
-    kernel_flops = flops + bh * nc * 2.0 * c * c * dk * (tiles - 1)
+    # what the two kernels compute (csrc/mlstm_scan.cu, its bf16 body): per
+    # (head, chunk) the scores of ceil(c / 32) tiles of 32 rows x 128
+    # columns and the sum of k a, once; per 32-column tile of dv and chunk,
+    # over 128 rows and dk in tiles of 64, each state product twice (the
+    # f32 operand's bf16 hi and lo halves: q C, sw v, the C update), q.n
+    # and the n update
+    tiles, up = -(-dv // 32), (lambda x, m: -(-x // m) * m)
+    pass1 = 2.0 * up(c, 32) * 128 * dk + 2.0 * c * dk
+    pass2 = (2 * 2.0 * 128 * 32 * up(dk, 64) + 2.0 * 128 * up(dk, 64)
+             + 2 * 2.0 * 128 * 32 * up(c, 16)
+             + 2 * 2.0 * up(dk, 64) * 32 * up(c, 16) + 2.0 * dk)
+    kernel_flops = bh * nc * (pass1 + tiles * pass2)
     return ms, plain, nbytes, flops, kernel_flops
 
 

@@ -22,7 +22,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
 SOURCES = ("paged_decode.cu", "paged_prefill.cu", "flash_attention.cu",
            "flash_attention_bwd.cu", "mlstm_scan.cu", "ring_decode.cu")
-HEADERS = ("paged_attend.cuh", "mma_tile.cuh")
+HEADERS = ("paged_attend.cuh", "mma_tile.cuh", "decode_stream.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -5,10 +5,11 @@ Replaces the TPU kernel kernels/decode_attention.py · decode_attention_fwd
 of the reference package: one query token per lane against that lane's
 ring-buffer KV cache (slot = position % L). On this card the function is
 bound by bytes (each lane's ring K and V are read once, with 4*G*hd
-operations per row), so the kernel reads the ring in tiles straight from
-the cache, keeps the softmax state on chip, and splits the ring over
-thread blocks where lanes x kv heads would leave most of the card idle
-(csrc/ring_decode.cu over the body of csrc/paged_attend.cuh).
+operations per row), so the kernel streams the visible rows from device
+memory into registers, 16 bytes a lane with several rows in flight, keeps
+the softmax state in registers, and splits the ring over thread blocks
+where lanes x kv heads would leave most of the card idle
+(csrc/ring_decode.cu over the body of csrc/decode_stream.cuh).
 
 Numerics (the reference kernel's): f32 math on f32 / bf16 inputs, scale
 1/sqrt(hd), masked scores -1e30, denominator max(l, 1e-30), so a lane that
@@ -82,8 +83,8 @@ def decode_attention_fwd(q, k_cache, v_cache, cache_pos, positions, *,
     """Decode against per-lane rings: q [b,K,G,hd] (f32 / bf16); k_cache,
     v_cache [b,L,K,hd] (f32 / bf16, any L); cache_pos [b,L] int32 (-1 =
     empty slot); positions [b] int32 (< 0 = inert lane) -> [b,K,G,hd] in
-    q's dtype. `kv_block` caps the ring positions a tile holds (the kernel
-    picks about 8192 / hd, at most 64).
+    q's dtype. `kv_block` caps the ring positions of a tile, the unit the
+    ring is split over thread blocks in (64 at most).
 
     CUDA tensors go to the CUDA kernel (built at first use; a failed build
     or launch raises); CPU tensors to the plain version."""

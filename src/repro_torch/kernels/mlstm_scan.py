@@ -1,19 +1,23 @@
-"""Chunked mLSTM scan: wrapper of the CUDA kernel, and the plain PyTorch
+"""Chunked mLSTM scan: wrapper of the CUDA kernels, and the plain PyTorch
 version.
 
 Replaces the TPU kernel kernels/mlstm_scan.py · mlstm_scan_fwd of the
 reference package: the chunkwise-parallel mLSTM over folded heads, an f32
 state (C [dk, dv], n [dk], m) carried across chunks, within a chunk the
 log-space stabilised decay matrix weighting q kᵀ. At the serving shape (32
-folded heads x 256 positions, dk = dv = 1024) the function is bound by
-bytes, and the f32 state in and out is most of them. The TPU kernel keeps a
-head's whole C (4 MiB) in VMEM; a thread block here holds a 1024 x 32 f32
-column tile of C in shared memory (grid: folded head x dv tile), loops over
-the chunks itself and recomputes what does not depend on the tile (the
-gates' stabiliser, q kᵀ, q·n, the n update), so the result is exact
-(csrc/mlstm_scan.cu).
+folded heads x 256 positions, dk = dv = 1024) the function is bound by its
+f32 operations, nine tenths of them the products with the state. The
+stabiliser chain m depends on the gates alone, so a first kernel computes
+once per (head, chunk) everything but the state products (m_t, the decay
+weights, the weighted scores (q kᵀ) o w and their row sums) into a scratch
+record this wrapper allocates; a second holds a 1024 x 32 f32 column tile
+of C in shared memory per thread block (grid: dv tile x folded head) and
+loops over the chunks (csrc/mlstm_scan.cu). bf16 inputs run the state
+products on the tensor cores (the f32 operand split into bf16 hi + lo
+halves), f32 inputs on the CUDA cores; the launch reports which body ran
+(`last_body`).
 
-The wrapper launches the kernel for CUDA tensors and raises if it cannot;
+The wrapper launches the kernels for CUDA tensors and raises if it cannot;
 it takes the plain version only for tensors that lie on the CPU.
 """
 from __future__ import annotations
@@ -29,15 +33,18 @@ from repro_torch.kernels import build
 SOURCE = "mlstm_scan.cu"
 
 NEG_INF = -1e30
-# the longest chunk the kernel takes: its [chunk, chunk] score tile lives in
-# shared memory beside the state tile
+# the longest chunk the kernels take: their tiles span 128 positions
 CHUNK_MAX = 128
 # the widest dk whose [dk, 32] f32 state tile fits in a block's shared memory
 DK_MAX = 1024
 
-# launches of the CUDA kernel made by mlstm_scan_fwd (and by nothing else):
-# a run can show that its path went through the kernel
+# calls of mlstm_scan_fwd that launched the CUDA kernels (two launches a
+# call, counted once; nothing else counts): a run can show that its path
+# went through them
 launches = 0
+# the body the last launch ran, as the C entry point reports it
+BODIES = {0: "cuda-core f32", 1: "tensor-core bf16"}
+last_body = None
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,11 +54,14 @@ _fn = None
 def _bound():
     global _fn
     if _fn is None:
-        fn = build.library(SOURCE).mlstm_scan_launch
+        lib = build.library(SOURCE)
+        fn = lib.mlstm_scan_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 12 + [i] * 6 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 13 + [i] * 6 + [ctypes.c_float, p, p]
         fn.restype = ctypes.c_int
-        _fn = fn
+        lib.mlstm_scan_work_floats.argtypes = [i] * 5
+        lib.mlstm_scan_work_floats.restype = ctypes.c_longlong
+        _fn = (fn, lib.mlstm_scan_work_floats)
     return _fn
 
 
@@ -142,7 +152,7 @@ def mlstm_scan_fwd(q, k, v, i_gate, f_gate, *, chunk: int = 128,
     if not q.is_cuda:
         return mlstm_scan_plain(q, k, v, i_gate, f_gate, chunk=chunk,
                                 initial=initial)
-    global launches
+    global launches, last_body
     bh, s, dk = q.shape
     dv = v.shape[-1]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -173,16 +183,26 @@ def mlstm_scan_fwd(q, k, v, i_gate, f_gate, *, chunk: int = 128,
     C = torch.empty((bh, dk, dv), dtype=torch.float32, device=q.device)
     n = torch.empty((bh, dk), dtype=torch.float32, device=q.device)
     m = torch.empty((bh,), dtype=torch.float32, device=q.device)
+    launch, work_floats = _bound()
+    nwork = int(work_floats(bh, s, dk, dv, c))
+    if nwork < 0:
+        raise ValueError(f"mLSTM scan of q {tuple(q.shape)}, v "
+                         f"{tuple(v.shape)}, chunk {c}: not supported by "
+                         "the kernel")
+    # the per-(head, chunk) records the first kernel leaves to the second
+    work = torch.empty((nwork,), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    body = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
-        rc = _bound()(*(build.ptr(t) for t in ins + [out, C, n, m]),
-                      bh, s, dk, dv, c, _DTYPES[q.dtype],
-                      ctypes.c_float(1.0 / np.sqrt(dk)),
-                      ctypes.c_void_p(stream))
+        rc = launch(*(build.ptr(t) for t in ins + [out, C, n, m, work]),
+                    bh, s, dk, dv, c, _DTYPES[q.dtype],
+                    ctypes.c_float(1.0 / np.sqrt(dk)), ctypes.byref(body),
+                    ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(
             f"mlstm_scan_launch failed (code {rc}; -1 = shape not "
             f"supported) for q {tuple(q.shape)}, v {tuple(v.shape)}, chunk "
             f"{c}")
     launches += 1
+    last_body = BODIES[body.value]
     return out, (C, n, m[:, None])
