@@ -14,7 +14,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      together.
   2. each kernel's wrapper against its plain PyTorch version on the card, at
      serving shapes and at odd ones: bf16 / int8 / int4 / f32 pools for the
-     paged kernels; f32 / bf16, causal / window / chunk, G = 1, 2, 4,
+     paged kernels, block sizes 4 to 128, unassigned table entries, inert
+     lanes, the decode's block mass at every block size and codec, the
+     prefill's tensor-core body for every codec at head_dim 80, 128 and
+     256 (each prefill case prints the attend body its C entry point
+     reports and fails unless bf16 queries over a bf16 / int8 / int4 pool
+     ran the tensor cores and f32 the CUDA cores); f32 / bf16, causal /
+     window / chunk, G = 1, 2, 4,
      lengths no tile divides and padded rows for flash attention (lse too;
      head_dim 80 and h2o-danube-1.8b's training shape among them);
      for the flash backward (dq, dk, dv) f32 / bf16, causal / window /
@@ -101,6 +107,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      per-lane leaves; kernels against plain versions at one unit plus the
      tail.
   then: each kernel timed at the largest shape its path launched it at
+  (the paged kernels also at every shape phase 3 launched them at, with
+  the launches each shape had and the sum of launches x time)
   (the flash forward and backward also at phase 8's training shape, the
   forward also at phase 9's padded slot prefill [8, 2048, 16, 256] under
   window 1024; ring decode at phase 9's slot-mode global ring [8, 4096, 8,
@@ -394,12 +402,16 @@ def decode_case(gen, name, *, lens, K, G, hd, bs, codec, qdt=torch.bfloat16,
 
 def prefill_case(gen, name, *, hist, clens, C, K, G, hd, bs, codec,
                  qdt=torch.bfloat16, window=None, chunk=None, m_blocks=None,
-                 unmapped_tail=False):
+                 unmapped_tail=False, holes=()):
     """Kernel 2 against its plain version: lane i holds hist[i] positions
     and appends clens[i] <= C tokens (the rest of the chunk is padding).
     Outputs to tolerance; pool positions, payload / codes exact and scales
     within 1 ULP over the whole pool. `unmapped_tail` leaves the last
-    logical block the chunk reaches unmapped: its rows must write nothing."""
+    logical block the chunk reaches unmapped: its rows must write nothing.
+    `holes` are (lane, logical block) entries of the history set to -1 (a
+    block the retention policy dropped). Every case reports the attend body
+    its C entry point ran: the tensor cores for bf16 queries over a bf16 /
+    int8 / int4 pool at a head width they take, else the CUDA cores."""
     b = len(hist)
     total = [h + c for h, c in zip(hist, clens)]
     mb = m_blocks or max(-(-max(total) // bs), 1)
@@ -416,6 +428,10 @@ def prefill_case(gen, name, *, hist, clens, C, K, G, hd, bs, codec,
     if unmapped_tail:
         for i in range(b):
             tables[i, (total[i] - 1) // bs] = -1
+    for i, j in holes:
+        if (j + 1) * bs > hist[i]:
+            fail(f"{name}: hole {j} of lane {i} reaches the chunk's rows")
+        tables[i, j] = -1
     positions = np.full((b, C), -1, np.int32)
     for i in range(b):
         positions[i, :clens[i]] = hist[i] + np.arange(clens[i])
@@ -429,6 +445,8 @@ def prefill_case(gen, name, *, hist, clens, C, K, G, hd, bs, codec,
         window=window, chunk=chunk, k_scales=ca.get("ks"),
         v_scales=ca.get("vs"))
     torch.cuda.synchronize()
+    tc = codec != "f32" and hd % 8 == 0 and hd <= 256
+    body = check_body(name, paged_prefill, qdt if tc else torch.float32)
     want = paged_prefill.paged_prefill_attention_plain(
         q, kn, vn, cb["kb"], cb["vb"], cb["pos"], tables, positions,
         window=window, chunk=chunk, k_scales=cb.get("ks"),
@@ -448,6 +466,7 @@ def prefill_case(gen, name, *, hist, clens, C, K, G, hd, bs, codec,
                 fail(f"{name}: scale leaf {n} off by {int(ulp)} ULP")
     if unmapped_tail and not torch.equal(ca["pos"][0], cache["pos"][0]):
         fail(f"{name}: scratch block written")
+    log(f"[2] {name}: {body} body, max abs err {err:.3e}")
     return err
 
 
@@ -747,6 +766,39 @@ def phase_kernels():
       lens=[40, 33], m_blocks=3)
     d("bs6 (tile rows not a multiple of 4)", K=2, G=4, hd=64, bs=6,
       codec="int8", lens=[100, 61, 7], mass=True)
+    # the streaming body's block mass (a lane group walks whole pool blocks,
+    # splits and pages hold whole blocks) at every block size, every codec
+    # (16 int8 / 32 int4 codes a lane), an unassigned middle entry, inert
+    # lanes; int4 at hd 16 (one lane a row, 8 of its 16 bytes); one lane
+    # over many pages of 1024 positions a split
+    for codec in ("f32", "bf16", "int8", "int4"):
+        qdt = torch.float32 if codec == "f32" else torch.bfloat16
+        d(f"mass bs64 hd256 G2 hole {codec}", K=4, G=2, hd=256, bs=64,
+          codec=codec, qdt=qdt, lens=[700, 64, 65], mass=True,
+          holes=((0, 3),))
+        d(f"mass bs8 G12 hd192 {codec}", K=2, G=12, hd=192, bs=8,
+          codec=codec, qdt=qdt, lens=[100, 9, 300], mass=True, inert=(1,))
+        d(f"mass bs128 G4 hd256 {codec}", K=2, G=4, hd=256, bs=128,
+          codec=codec, qdt=qdt, lens=[300, 128, 1000], mass=True,
+          holes=((2, 1),))
+        d(f"mass bs6 G4 hd64 hole {codec}", K=2, G=4, hd=64, bs=6,
+          codec=codec, qdt=qdt, lens=[100, 61, 7], mass=True,
+          holes=((0, 4),))
+        d(f"mass bs16 serve heads window {codec}", codec=codec, qdt=qdt,
+          window=700, lens=[2048, 300, 1777, 1024], mass=True,
+          holes=((2, 10),), **S)
+    d("int4 hd16 G4 bs16 window mass inert", K=2, G=4, hd=16, bs=16,
+      codec="int4", lens=[200, 33, 1], window=50, mass=True, inert=(2,))
+    d("int4 hd16 G1 bs4 chunk", K=2, G=1, hd=16, bs=4, codec="int4",
+      lens=[77, 20], chunk=32)
+    d("int4 hd80 G2 bs16 (40-byte rows)", K=2, G=2, hd=80, bs=16,
+      codec="int4", lens=[500, 17], mass=True)
+    d("int8 hd80 G4 bs16", K=2, G=4, hd=80, bs=16, codec="int8",
+      lens=[500, 17])
+    d("one lane 40000 positions int8 mass (pages within a split)", K=1,
+      G=4, hd=64, bs=16, codec="int8", lens=[40000], mass=True)
+    d("one lane 40000 positions bf16", K=1, G=4, hd=64, bs=16,
+      codec="bf16", lens=[40000])
 
     for codec in ("bf16", "int8", "int4"):
         p(f"serve fresh w4 {codec}", hist=[0, 0, 0, 0],
@@ -777,6 +829,22 @@ def phase_kernels():
       bs=128, codec="bf16")
     p("bs6 C30 (tile rows not a multiple of 4)", hist=[50, 0], clens=[30, 17],
       C=30, K=2, G=4, hd=64, bs=6, codec="int4")
+    # the tensor-core body: every codec at hd 80 (40-byte int4 rows, 8-byte
+    # copies) and at gemma3-12b's global layers (hd 256, G 2), a K/V tile
+    # spanning an unassigned middle entry of the history, pool blocks of 6
+    # (tiles across block edges) and of 128 (a tile inside one block)
+    for codec in ("bf16", "int8", "int4"):
+        p(f"tc hd80 G4 C64 {codec}", hist=[300, 17, 0], clens=[64, 40, 64],
+          C=64, K=2, G=4, hd=80, bs=16, codec=codec)
+        p(f"tc gemma3 global hd256 G2 C128 {codec}", hist=[700, 0],
+          clens=[128, 77], C=128, bs=16, codec=codec, **GM)
+        p(f"tc hole mid-tile C64 {codec}", hist=[500, 200], clens=[64, 50],
+          C=64, K=2, G=4, hd=128, bs=16, codec=codec,
+          holes=((0, 5), (1, 2), (1, 3)))
+        p(f"tc bs6 C48 {codec}", hist=[100, 7], clens=[48, 30], C=48, K=2,
+          G=4, hd=128, bs=6, codec=codec, holes=((0, 3),))
+        p(f"tc bs128 C128 window {codec}", hist=[300, 0], clens=[128, 128],
+          C=128, K=2, G=4, hd=128, bs=128, codec=codec, window=200)
 
     def f(name, **kw):
         nonlocal n
@@ -1267,7 +1335,9 @@ def phase_main(cfg, params):
             fail(f"launch counters: decode {nd} (want {want_d}), prefill "
                  f"{npf} (want {want_p}), flash {nfa} (want {want_f})")
         counts[kv_quant] = (nd, npf, nfa)
-        shapes[kv_quant] = {k: sorted(v) for k, v in ex._shapes.items()}
+        # each step's shapes and how many calls each had
+        shapes[kv_quant] = {k: dict(sorted(c.items()))
+                            for k, c in ex.shape_calls.items()}
         reps[kv_quant] = rep
         if kv_quant == "none":
             calls = ex.calls
@@ -2185,7 +2255,11 @@ def pool_row_bytes(cfg, codec):
     return {"bf16": 2 * hd, "int8": hd + 4, "int4": hd // 2 + 4}[codec]
 
 
-def time_decode(cfg, gen, w, mb, codec):
+def time_decode(cfg, gen, w, mb, codec, plain=True):
+    """Paged decode at w lanes whose tables hold mb blocks, every lane at
+    mb * KV_BLOCK - 3 positions (the most a call of that shape reads): the
+    kernel (and, with `plain`, its plain version; else None), and the bytes
+    and operations the function needs for these inputs."""
     K, G, hd = cfg.n_kv_heads, cfg.q_group, cfg.resolved_head_dim
     n = mb * KV_BLOCK - 3
     lens = [n] * w
@@ -2198,8 +2272,9 @@ def time_decode(cfg, gen, w, mb, codec):
     args = (q, cache["kb"], cache["vb"], cache["pos"], tables, positions)
     kw = dict(k_scales=ks, v_scales=vs)
     ms = time_ms(lambda: paged_decode.paged_decode_attention(*args, **kw), 20)
-    plain = time_ms(
-        lambda: paged_decode.paged_decode_attention_plain(*args, **kw), 5)
+    if plain:
+        plain = time_ms(
+            lambda: paged_decode.paged_decode_attention_plain(*args, **kw), 5)
     rows = w * n
     nbytes = (rows * K * 2 * pool_row_bytes(cfg, codec) + rows * 4
               + 2 * q.numel() * 2 + tables.numel() * 4 + w * 4)
@@ -2207,10 +2282,14 @@ def time_decode(cfg, gen, w, mb, codec):
     return ms, plain, nbytes, flops
 
 
-def time_prefill(cfg, gen, w, mb, codec):
+def time_prefill(cfg, gen, w, mb, codec, plain=True):
+    """Paged prefill of a CHUNK-token chunk at w lanes whose tables hold mb
+    blocks, every lane's history filling them (the most a call of that
+    shape reads): the kernel (and, with `plain`, its plain version; else
+    None), and the bytes and operations the function needs."""
     K, G, hd = cfg.n_kv_heads, cfg.q_group, cfg.resolved_head_dim
     C = CHUNK
-    hist = mb * KV_BLOCK - C
+    hist = max(mb * KV_BLOCK - C, 0)
     cache, tables = make_pool(gen, lens=[hist + C] * w, K=K, hd=hd,
                               bs=KV_BLOCK, m_blocks=mb, codec=codec)
     positions = (hist + torch.arange(C, dtype=torch.int32, device=DEV)
@@ -2226,8 +2305,10 @@ def time_prefill(cfg, gen, w, mb, codec):
             positions)
     kw = dict(k_scales=ks, v_scales=vs)
     ms = time_ms(lambda: paged_prefill.paged_prefill_attention(*args, **kw), 5)
-    plain = time_ms(
-        lambda: paged_prefill.paged_prefill_attention_plain(*args, **kw), 3)
+    if plain:
+        plain = time_ms(
+            lambda: paged_prefill.paged_prefill_attention_plain(*args, **kw),
+            3)
     row = pool_row_bytes(cfg, codec)
     # read: q, k_new, v_new, the history rows, tables, positions; written:
     # o and the chunk's rows (payload, scales, positions)
@@ -2414,10 +2495,23 @@ def kernel_rows(cfg, counts, shapes, errs, greedy=None):
                  "src/repro_torch/kernels/csrc/paged_prefill.cu",
                  "src/repro/kernels/prefill_attention.py:294", time_prefill,
                  "chunk", npf)):
-            w, mb = max(shapes[kv_quant][key], key=lambda s: s[0] * s[1])
+            calls = shapes[kv_quant][key]
+            w, mb = max(calls, key=lambda s: s[0] * s[1])
             ms, plain, nbytes, flops = timer(cfg, gen, w, mb, codec)
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_BF16_FLOPS * 1e3
+            # every shape the path launched the kernel at, each call a
+            # launch per layer, timed at the most that shape reads: their
+            # sum over launches is the kernel's share of the phase's wall
+            if sum(calls.values()) * cfg.n_layers != launches:
+                fail(f"{name}[{codec}]: {sum(calls.values())} calls of "
+                     f"{cfg.n_layers} layers, {launches} launches")
+            per = {f"{sw}x{smb}": (cfg.n_layers * c,
+                                   ms if (sw, smb) == (w, mb) else
+                                   timer(cfg, gen, sw, smb, codec,
+                                         plain=False)[0])
+                   for (sw, smb), c in sorted(calls.items())}
+            top = max(per, key=lambda k: per[k][0])
             rows.append({
                 "name": f"{name}[{codec}]", "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches,
@@ -2427,7 +2521,11 @@ def kernel_rows(cfg, counts, shapes, errs, greedy=None):
                 "library_ms": None,
                 "shape": {"lanes": w, "table_blocks": mb, "block": KV_BLOCK,
                           "chunk": CHUNK if name == "paged_prefill" else 1},
-                "bytes": nbytes, "operations": flops})
+                "bytes": nbytes, "operations": flops,
+                "launch_shapes": {k: n for k, (n, _) in per.items()},
+                "ms_by_shape": {k: t for k, (_, t) in per.items()},
+                "most_launched_shape": top, "ms_most_launched": per[top][1],
+                "launches_x_ms": sum(n * t for n, t in per.values())})
     return rows
 
 
@@ -2675,6 +2773,12 @@ def main():
             f"{r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
             f"by {r['bound_by']}{rate}, {r['launches']} launches on its "
             f"path ({smi})")
+        if "launch_shapes" in r:
+            log(f"[k]   {r['name']} by shape (lanes x table blocks): "
+                f"launches {r['launch_shapes']}, ms {r['ms_by_shape']}; "
+                f"most launched {r['most_launched_shape']} at "
+                f"{r['ms_most_launched']:.4f} ms; sum of launches x ms "
+                f"{r['launches_x_ms']:.1f}")
     log(f"total {time.time() - t_start:.1f}s")
     if not ALL_PHASES <= phases:
         log("partial run (not every phase): no kernels line, no result line")

@@ -1,6 +1,8 @@
-// Tiled online-softmax attention through a paged KV pool: the body shared by
-// the paged decode kernel (one query token per lane) and the attend half of
-// the paged prefill kernel (a chunk of query tokens per lane).
+// Tiled online-softmax attention through a paged KV pool on the CUDA cores:
+// the attend half of the paged prefill kernel for f32 queries, f32 pools and
+// head widths its tensor-core body does not take (a chunk of query tokens
+// per lane). Its tile loader and helpers also serve the flash forward's f32
+// body.
 //
 // One thread block (128 threads) owns QR query rows of one (lane, kv head):
 // row m of the head's C*G rows is (chunk token m / G, group member m % G).
@@ -16,13 +18,9 @@
 //      query row updates the running (max, sum) in f32;
 //   4. rescales and accumulates p.V into registers (NACC floats a thread,
 //      each thread owning HPT columns of the head for a set of rows).
-// With no block table (`tables` null) the same body reads per-lane rings
-// [b, L, K, hd] by pointer arithmetic (ring decode). Tiles are skipped only
-// on what their own positions show, never on their index: a ring's slots
-// are not in position order.
-// Nothing of size [rows, context] and no fp copy of a quantised pool ever
-// reaches device memory. Everything is f32 on CUDA cores: no tensor cores
-// and no asynchronous copies yet.
+// Tiles are skipped only on what their own positions show, never on their
+// index. Nothing of size [rows, context] and no fp copy of a quantised pool
+// ever reaches device memory. Everything is f32 on CUDA cores.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,23 +47,14 @@ struct AttendArgs {
     const void* vpool;
     const float* kscale;     // [n_blocks, bs, K] or null
     const float* vscale;
-    const int* pool_pos;     // [n_blocks, bs] ([b, L] for a ring)
-    const int* tables;       // [b, mB], or null: per-lane rings [b, L, K,
-                             // hd] read as bs = L, mB = 1
+    const int* pool_pos;     // [n_blocks, bs]
+    const int* tables;       // [b, mB]
     const int* positions;    // [b, C]
-    float* bm;               // [b, mB, K, G] or null (decode only, C == 1)
-    float* bl;
     int b, C, K, G, hd, bs, mB;
     int q_dtype, codec;
     int window, chunk;       // 0 = none
     int QR, TR;              // query rows per block, pool positions per tile
     float scale;             // 1 / sqrt(hd)
-    // Split of the context over thread blocks (decode, one query tile): with
-    // nsplit > 1, blockIdx.x is the split, and each block leaves its
-    // unnormalised sums, running max and sum in part [b, K, nsplit, QR,
-    // hd + 2] for the merge kernel.
-    int nsplit;
-    float* part;
 };
 
 __device__ __forceinline__ float pa_load(const void* p, size_t i, int dt) {
@@ -255,8 +244,7 @@ paged_attend_kernel(AttendArgs a) {
     const int QR = a.QR, TR = a.TR;
     const int TRP = pa_up4(TR), SS = TRP;
     const int M = C * G;
-    const bool split = a.nsplit > 1;
-    const int m0 = split ? 0 : blockIdx.x * QR;
+    const int m0 = blockIdx.x * QR;
     const int kh = blockIdx.y;
     const int bi = blockIdx.z;
     const int hp = hd + 4, qp = hd + 1;
@@ -306,30 +294,19 @@ paged_attend_kernel(AttendArgs a) {
     __syncthreads();
 
     const int total_rows = a.mB * bs;
-    const int* tbl = a.tables ? a.tables + (size_t)bi * a.mB : nullptr;
-    int t_begin = 0, t_end = total_rows;
-    if (split) {
-        int tiles = (total_rows + TR - 1) / TR;
-        int per = (tiles + a.nsplit - 1) / a.nsplit;
-        t_begin = min((int)blockIdx.x * per * TR, total_rows);
-        t_end = min(t_begin + per * TR, total_rows);
-    }
+    const int* tbl = a.tables + (size_t)bi * a.mB;
 
-    for (int t0 = t_begin; t0 < t_end; t0 += TR) {
+    for (int t0 = 0; t0 < total_rows; t0 += TR) {
         // ---- which pool rows this tile holds, and their positions
         for (int r = tid; r < TR; r += PA_THREADS) {
             int R = t0 + r;
             int row = -1, cp = -1;
-            if (R < total_rows && tbl != nullptr) {
+            if (R < total_rows) {
                 int ent = tbl[R / bs];
                 if (ent >= 0) {
                     row = ent * bs + (R % bs);
                     cp = a.pool_pos[row];
                 }
-            } else if (R < total_rows) {
-                // a per-lane ring [b, L] (no table): row R of lane bi
-                row = bi * total_rows + R;
-                cp = a.pool_pos[row];
             }
             row_s[r] = row;
             cp_s[r] = cp;
@@ -397,9 +374,9 @@ paged_attend_kernel(AttendArgs a) {
                     }
             }
         } else {
-            // few query rows (decode): one output a thread at a time; the
-            // walk over h starts at a per-row offset so that neighbouring
-            // rows hit different banks
+            // few query rows (a short chunk): one output a thread at a
+            // time; the walk over h starts at a per-row offset so that
+            // neighbouring rows hit different banks
             for (int idx = tid; idx < QR * TR; idx += PA_THREADS) {
                 int ml = idx / TR, r = idx - ml * TR;
                 float s = PA_NEG_INF;
@@ -419,38 +396,13 @@ paged_attend_kernel(AttendArgs a) {
             }
         }
         any = __syncthreads_or(any);
-        if (!any && a.bm == nullptr) continue;   // nothing visible: a no-op
+        if (!any) continue;                      // nothing visible: a no-op
         // ---- V rows into the buffer K just left
         pa_load_tile(a.vpool, a.vscale, row_s, cp_s, kv_s, TR, hd, hp, K, kh,
                      a.codec, tid);
         // ---- per-row online softmax, one warp per query row
         for (int ml = warp; ml < QR; ml += PA_THREADS / 32) {
             float* srow = s_s + ml * SS;
-            if (a.bm != nullptr && m0 + ml < M) {
-                // block-local (max, sumexp) of every pool block of the tile
-                // (decode only: row ml is group member g = ml)
-                int ne = TR / bs;
-                for (int e = 0; e < ne; ++e) {
-                    int j = t0 / bs + e;
-                    if (j >= a.mB) break;
-                    float bmax = PA_NEG_INF;
-                    for (int r = lane; r < bs; r += 32)
-                        bmax = fmaxf(bmax, srow[e * bs + r]);
-                    bmax = pa_warp_max(bmax);
-                    float bsum = 0.f;
-                    for (int r = lane; r < bs; r += 32) {
-                        float s = srow[e * bs + r];
-                        if (s > -1e29f) bsum += expf(s - bmax);
-                    }
-                    bsum = pa_warp_sum(bsum);
-                    if (lane == 0) {
-                        size_t off = (((size_t)bi * a.mB + j) * K + kh) * G
-                                   + (m0 + ml);
-                        a.bm[off] = bmax;
-                        a.bl[off] = bsum;
-                    }
-                }
-            }
             float mx = PA_NEG_INF;
             for (int r = lane; r < TR; r += 32) mx = fmaxf(mx, srow[r]);
             mx = pa_warp_max(mx);
@@ -513,31 +465,6 @@ paged_attend_kernel(AttendArgs a) {
         __syncthreads();
     }
 
-    // ---- a split leaves its partial state to the merge kernel
-    if (split) {
-        float* part = a.part
-            + (((size_t)bi * K + kh) * a.nsplit + blockIdx.x) * QR * (hd + 2);
-        if (own.active) {
-#pragma unroll
-            for (int i = 0; i < RMAX; ++i) {
-                int ml = own.rg + own.RG * i;
-                if (i < own.RPT && ml < QR) {
-#pragma unroll
-                    for (int c = 0; c < HPT; ++c) {
-                        int h = own.h0 + c * PA_THREADS;
-                        if (h < hd)
-                            part[ml * (hd + 2) + h] = acc[c * RMAX + i];
-                    }
-                }
-            }
-        }
-        for (int ml = tid; ml < QR; ml += PA_THREADS) {
-            part[ml * (hd + 2) + hd] = m_s[ml];
-            part[ml * (hd + 2) + hd + 1] = l_s[ml];
-        }
-        return;
-    }
-
     // ---- finalise: a row that saw nothing (inert lane, padding) gives 0
     if (own.active) {
 #pragma unroll
@@ -558,30 +485,6 @@ paged_attend_kernel(AttendArgs a) {
                 }
             }
         }
-    }
-}
-
-// Merge of the splits' partial states: grid (K, b), one thread per output
-// element. o = sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-30).
-__global__ void __launch_bounds__(PA_THREADS)
-paged_merge_kernel(const float* part, void* o, int K, int G, int hd,
-                   int nsplit, int o_dtype) {
-    const int kh = blockIdx.x, bi = blockIdx.y;
-    const float* base = part + ((size_t)bi * K + kh) * nsplit * G * (hd + 2);
-    for (int idx = threadIdx.x; idx < G * hd; idx += PA_THREADS) {
-        int g = idx / hd, h = idx - g * hd;
-        float mx = PA_NEG_INF;
-        for (int s = 0; s < nsplit; ++s)
-            mx = fmaxf(mx, base[((size_t)s * G + g) * (hd + 2) + hd]);
-        float num = 0.f, den = 0.f;
-        for (int s = 0; s < nsplit; ++s) {
-            const float* p = base + ((size_t)s * G + g) * (hd + 2);
-            float w = expf(p[hd] - mx);
-            num = fmaf(p[h], w, num);
-            den = fmaf(p[hd + 1], w, den);
-        }
-        size_t off = (((size_t)bi * K + kh) * G + g) * hd + h;
-        pa_store(o, off, o_dtype, num / fmaxf(den, 1e-30f));
     }
 }
 
@@ -607,7 +510,7 @@ static int pa_launch_n(const AttendArgs& a, dim3 grid, size_t smem,
 // -1: shape not supported (too many accumulators or too much shared memory)
 static int pa_launch(AttendArgs a, cudaStream_t stream) {
     int M = a.C * a.G;
-    dim3 grid(a.nsplit > 1 ? a.nsplit : (M + a.QR - 1) / a.QR, a.K, a.b);
+    dim3 grid((M + a.QR - 1) / a.QR, a.K, a.b);
     size_t smem = pa_smem_bytes(a.QR, a.TR, a.hd);
     if (smem > 227 * 1024) return -1;
     int hpt = (a.hd + PA_THREADS - 1) / PA_THREADS;

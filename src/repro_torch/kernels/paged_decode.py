@@ -4,12 +4,15 @@ version.
 Replaces the TPU kernel kernels/decode_attention.py ·
 paged_decode_attention_fwd of the reference package. On this card the
 function is bound by bytes (each mapped K and V row of a lane is read once,
-with 4*G*hd operations per row), so the kernel reads codes and scales
-straight from the pool through the block table and never writes a gathered
-or dequantised copy; thread blocks over (context split, kv head, lane) keep
-the softmax state on chip, and where lanes x kv heads would leave most of
-the card idle the context is split over blocks and merged by a second small
-kernel (csrc/paged_decode.cu, csrc/paged_attend.cuh).
+with 4*G*hd operations per row), so the kernel streams codes and scales
+straight from the pool into registers through the block table (16 bytes a
+lane, several positions in flight) and never writes a gathered or
+dequantised copy; thread blocks over (context split, kv head, lane) keep
+the softmax state in registers, the context split in whole pool blocks
+over as many thread blocks as the card keeps resident at once and merged
+by a second small kernel
+(csrc/paged_decode.cu over csrc/decode_stream.cuh, the ring decode
+kernel's streaming body).
 
 The wrapper launches the kernel for CUDA tensors and raises if it cannot;
 it takes the plain version only for tensors that lie on the CPU.
@@ -45,7 +48,7 @@ def _bound():
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 11 + [i] * 10 + [ctypes.c_float, i, p, p]
         fn.restype = ctypes.c_int
-        lib.paged_decode_splits.argtypes = [i] * 5
+        lib.paged_decode_splits.argtypes = [i] * 8
         lib.paged_decode_splits.restype = i
         _fn = (fn, lib.paged_decode_splits)
     return _fn
@@ -178,7 +181,7 @@ def paged_decode_attention(q, k_pool, v_pool, pool_pos, block_tables,
     launch, splits = _bound()
     # the context is split over thread blocks where lanes x kv heads would
     # leave the card idle; the splits' partial sums live in `part`
-    nsplit = int(splits(b, K, hd, bs, m_blocks))
+    nsplit = int(splits(b, K, G, hd, bs, m_blocks, codec, int(return_mass)))
     part = None
     if nsplit > 1:
         part = torch.empty((b, K, nsplit, G, hd + 2), dtype=torch.float32,

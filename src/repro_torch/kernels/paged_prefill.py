@@ -9,8 +9,12 @@ design keeps what the capacity model prices for the tiled kernel
 (predictor.prefill_transient_bytes(kernel="tiled")): no [chunk, context]
 score matrix and no fp copy of a quantised pool in device memory. A write
 kernel stores the chunk (quantise-on-write), then a tiled online-softmax
-kernel attends over the post-write pool (csrc/paged_prefill.cu,
-csrc/paged_attend.cuh).
+kernel attends over the post-write pool (csrc/paged_prefill.cu): bf16
+queries over a bf16, int8 or int4 pool on the tensor cores (mma.sync, K/V
+rows gathered through the table by cp.async, codes converted to bf16 in
+shared memory), f32 queries, f32 pools and head widths the tensor cores do
+not take on the CUDA cores (csrc/paged_attend.cuh); the launch reports
+which body ran (`last_body`).
 
 The pool leaves are updated IN PLACE. The wrapper launches the kernels for
 CUDA tensors and raises if it cannot; it takes the plain version only for
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import _aligned
 from repro_torch.kernels.paged_decode import _Q_DTYPES, check_pool_args
 
 SOURCE = "paged_prefill.cu"
@@ -32,6 +37,9 @@ SOURCE = "paged_prefill.cu"
 # launches of the CUDA kernel pair (write + attend count as one) made by
 # paged_prefill_attention, and by nothing else
 launches = 0
+# the attend body the last launch ran, as the C entry point reports it
+BODIES = {0: "cuda-core f32", 1: "tensor-core bf16"}
+last_body = None
 
 _fn = None
 
@@ -41,7 +49,7 @@ def _bound():
     if _fn is None:
         fn = build.library(SOURCE).paged_prefill_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 11 + [i] * 11 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 11 + [i] * 11 + [ctypes.c_float, p, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -107,13 +115,15 @@ def paged_prefill_attention(q, k_new, v_new, k_pool, v_pool, pool_pos,
     leaves (and scales) are updated in place.
 
     CUDA tensors go to the CUDA kernels (built at first use; a failed build
-    or launch raises); CPU tensors to the plain version."""
+    or launch raises); CPU tensors to the plain version. The tensor-core
+    body needs pool leaves 16-byte aligned (it copies rows 16 bytes at a
+    time)."""
     if not q.is_cuda:
         return paged_prefill_attention_plain(
             q, k_new, v_new, k_pool, v_pool, pool_pos, block_tables,
             positions, window=window, chunk=chunk, k_scales=k_scales,
             v_scales=v_scales)
-    global launches
+    global launches, last_body
     b, C, K, G, hd = q.shape
     codec = check_pool_args(q, k_pool, v_pool, pool_pos, block_tables,
                             positions, k_scales, v_scales, K, hd)
@@ -125,13 +135,14 @@ def paged_prefill_attention(q, k_new, v_new, k_pool, v_pool, pool_pos,
         raise ValueError("positions must be [b, C], block_tables [b, mB]")
     m_blocks = block_tables.shape[1]
     bs = pool_pos.shape[1]
-    q = q.contiguous()
+    q = _aligned(q)
     k_new = k_new.contiguous()
     v_new = v_new.contiguous()
     tables = block_tables.contiguous()
     positions = positions.contiguous()
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    body = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         rc = _bound()(
             build.ptr(q), build.ptr(k_new), build.ptr(v_new), build.ptr(o),
@@ -139,10 +150,14 @@ def paged_prefill_attention(q, k_new, v_new, k_pool, v_pool, pool_pos,
             build.ptr(v_scales), build.ptr(pool_pos), build.ptr(tables),
             build.ptr(positions), b, C, K, G, hd, bs, m_blocks,
             _Q_DTYPES[q.dtype], codec, int(window or 0), int(chunk or 0),
-            ctypes.c_float(1.0 / np.sqrt(hd)), ctypes.c_void_p(stream))
+            ctypes.c_float(1.0 / np.sqrt(hd)), ctypes.byref(body),
+            ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(
             f"paged_prefill_launch failed (code {rc}; -1 = shape not "
-            f"supported) for q {tuple(q.shape)}, block {bs}, codec {codec}")
+            f"supported, -2 = k_pool/v_pool not 16-byte aligned for the "
+            f"tensor-core body) for q {tuple(q.shape)}, block {bs}, "
+            f"codec {codec}")
     launches += 1
+    last_body = BODIES[body.value]
     return o

@@ -28,6 +28,7 @@ K/V into the pool through the block tables as it runs.
 from __future__ import annotations
 
 import dataclasses
+from collections import Counter
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -241,12 +242,13 @@ class PagedTorchExecutor:
         self.prefills = 0
         self.decodes = 0
         self.chunk_calls = 0
-        # distinct shapes each step was launched at — what a jit would have
-        # compiled: (lane bucket, table bucket) for decode and chunk steps,
-        # (lane bucket, prompt length) for whole-prompt prefill
-        self._shapes: Dict[str, set] = {"prefill": set(), "decode": set(),
-                                        "decode_compact": set(),
-                                        "chunk": set()}
+        # calls of each step at each shape: (lane bucket, table bucket) for
+        # decode and chunk steps, (lane bucket, prompt length) for
+        # whole-prompt prefill; a step's kernels launch once per paged layer
+        # and call, at the call's shape
+        self.shape_calls: Dict[str, Counter] = {
+            k: Counter() for k in ("prefill", "decode", "decode_compact",
+                                   "chunk")}
         # batch rows each bucketed step held a request in, and rows it
         # computed (the difference is the buckets' padding rows)
         self.rows_real = {"prefill": 0, "decode_compact": 0, "chunk": 0}
@@ -296,7 +298,7 @@ class PagedTorchExecutor:
         lane_arr = np.full((w,), self.n_lanes, np.int32)
         lane_arr[:n] = lanes
         tbl = self._table_array(list(tables) + [[]] * (w - n), w)
-        self._shapes["prefill"].add((w, p))
+        self.shape_calls["prefill"][(w, p)] += 1
         self.rows_real["prefill"] += n
         self.rows_computed["prefill"] += w
         logits, self.pool = self._prefill_step(
@@ -352,7 +354,7 @@ class PagedTorchExecutor:
         t = self._dev(list(tokens))[:, None]
         p = self._dev(list(positions))
         tbl = self._dev(self._table_array(tables, self.n_lanes))
-        self._shapes["decode"].add((self.n_lanes, self.max_blocks))
+        self.shape_calls["decode"][(self.n_lanes, self.max_blocks)] += 1
         logits, self.pool, mass = self._decode_step(
             self.params, t, p, tbl, self.pool, context=self.context)
         self.decodes += 1
@@ -382,7 +384,7 @@ class PagedTorchExecutor:
                 raise ValueError(f"lane {i}: table of {len(tables[i])} "
                                  f"blocks exceeds bucketed width {mb}")
             tbl[j, :len(tables[i])] = tables[i]
-        self._shapes["decode_compact"].add((w, mb))
+        self.shape_calls["decode_compact"][(w, mb)] += 1
         self.rows_real["decode_compact"] += len(lanes)
         self.rows_computed["decode_compact"] += w
         logits, self.pool, mass = self._compact_step(
@@ -429,7 +431,7 @@ class PagedTorchExecutor:
             toks[j, :len(c)] = c
             pos[j, :len(c)] = starts[j] + np.arange(len(c))
             lane_arr[j] = lane
-        self._shapes["chunk"].add((w, mb))
+        self.shape_calls["chunk"][(w, mb)] += 1
         self.rows_real["chunk"] += len(lanes)
         self.rows_computed["chunk"] += w
         logits, self.pool = self._chunk_step(
@@ -447,6 +449,12 @@ class PagedTorchExecutor:
         policy's ranking signal."""
         return self._last_mass
 
+    @property
+    def _shapes(self) -> Dict[str, set]:
+        """The distinct shapes each step was launched at: what a jit would
+        have compiled."""
+        return {k: set(c) for k, c in self.shape_calls.items()}
+
     def compile_counts(self) -> dict:
         """Nothing is compiled per shape here; each entry is the number of
         distinct shapes that step was launched at ((lane bucket, prompt
@@ -455,8 +463,5 @@ class PagedTorchExecutor:
         compiled — so the engine's report keeps its meaning. `reset` is
         always 0: it takes the block ids as they come, with no padded
         width."""
-        return {"prefill": len(self._shapes["prefill"]),
-                "decode": len(self._shapes["decode"]),
-                "decode_compact": len(self._shapes["decode_compact"]),
-                "chunk": len(self._shapes["chunk"]),
+        return {**{k: len(c) for k, c in self.shape_calls.items()},
                 "reset": 0}
