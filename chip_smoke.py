@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 1,8    # build + the training path only
     python3 chip_smoke.py --phases 1,9    # build + gemma3-12b ring/slot only
     python3 chip_smoke.py --phases 1,10   # build + recurrentgemma-9b only
+    python3 chip_smoke.py --phases 1,11   # build + the serving CLI only
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. device: the card's name and power limit, its properties beside the
@@ -106,6 +107,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      launches = 12 x decode ticks on both engines; RG-LRU state in
      per-lane leaves; kernels against plain versions at one unit plus the
      tail.
+ 11. the serving CLI (repro_torch.launch.serve) in process through its
+     main(argv), after the earlier phases' tensors are freed, each run
+     failing the phase on a non-zero return: (a) mistral-nemo-12b at full
+     width and depth, --kv paged --compact --chunk-prefill 256 --mesh auto
+     with no --kv-block, phase 3's trace (16 requests, 8 lanes), strict
+     audit: plan_serving classifies the workload on the simulator's ladder
+     and, with the H100's 80 GB, chooses the block size and the pool;
+     every request completes, paged decode, paged prefill and flash
+     attention each launch, nothing else; the chosen class beside phase
+     3's hand-fixed Medium; torch.cuda.max_memory_allocated() beside the
+     plan's predicted bytes (printed, not asserted); (b) the same
+     configuration with --backend cuda: the workload classified from
+     steps measured on the card (CudaMeasurer over the ladder), its class,
+     alpha and inc beside (a)'s (printed, not asserted); (c) gemma3-12b
+     through the ring path (TorchExecutor), 8 requests: ring decode and
+     flash attention launch, the paged kernels do not.
   then: each kernel timed at the largest shape its path launched it at
   (the paged kernels also at every shape phase 3 launched them at, with
   the launches each shape had and the sum of launches x time)
@@ -122,7 +139,9 @@ The last line of standard output is
 Without a CUDA device the script exits non-zero and prints no result.
 """
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -146,11 +165,13 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import (DECODE, TRAIN, BlockSpec,  # noqa: E402
                                       ShapeConfig, depth_variant)
 from repro_torch.core import classifier as CL, predictor as PR  # noqa: E402
+from repro_torch.core import measure as MM  # noqa: E402
 from repro_torch.kernels import (build, decode_attention,  # noqa: E402
                                  flash_attention, flash_attention_bwd,
                                  mlstm_scan, paged_decode, paged_prefill)
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
+from repro_torch.launch import serve as SV  # noqa: E402
 from repro_torch.launch import train as LT  # noqa: E402
 from repro_torch.models import ModelSettings, init_params  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
@@ -159,6 +180,7 @@ from repro_torch.optim import optimizers as OPT  # noqa: E402
 from repro_torch.runtime import fault as FT  # noqa: E402
 from repro_torch.runtime import serve_step as SS  # noqa: E402
 from repro_torch.runtime import train_step as TS  # noqa: E402
+from repro_torch.search import execplan as XP  # noqa: E402
 from repro_torch.serving import (BlockAllocator, Engine, leak_check,  # noqa: E402
                                  synthetic_trace, trace_context)
 from repro_torch.serving import quality as Q  # noqa: E402
@@ -2709,12 +2731,162 @@ def run_mistral(phases, errs):
     return kernel_rows(cfg, counts, shapes, errs, greedy)
 
 
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10}
+# ---------------------------------------------------------------------------
+# Phase 11: the serving CLI plans the deployment on the card
+# ---------------------------------------------------------------------------
+
+# phase 3's trace (make_trace: seed SEED + 7, the same lengths and arrivals);
+# no --kv-block, so plan_serving chooses the block size
+CLI_PAGED = ["--arch", "mistral-nemo-12b", "--kv", "paged", "--compact",
+             "--chunk-prefill", str(CHUNK), "--mesh", "auto",
+             "--max-slots", str(LANES), "--requests", "16",
+             "--prompt-lens", "64,200,256,520,1024,2048",
+             "--gen-lens", "16,24,32", "--arrival-mean", "2.0",
+             "--seed", str(SEED + 7), "--audit", "strict"]
+CLI_RING = ["--arch", "gemma3-12b", "--kv", "ring", "--max-slots", "8",
+            "--requests", "8", "--prompt-lens", "64,200,512",
+            "--gen-lens", "8,16", "--seed", str(SEED + 11)]
+
+
+def run_cli(tag, argv):
+    """SV.main(argv + --device cuda) in process, its standard output
+    captured and logged line by line; plan_serving's result and every
+    CudaMeasurer profile recorded; launch counters zeroed just before and
+    read just after. Fails the run on a non-zero return, an exit or an
+    exception."""
+    plans, profiles = [], []
+    plan_serving, measure = XP.plan_serving, MM.CudaMeasurer._measure
+
+    def recorded_plan(*a, **kw):
+        plans.append(plan_serving(*a, **kw))
+        return plans[-1]
+
+    def recorded_measure(self, *a, **kw):
+        t0 = time.time()
+        profiles.append((measure(self, *a, **kw), time.time() - t0))
+        return profiles[-1][0]
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    buf = io.StringIO()
+    XP.plan_serving, MM.CudaMeasurer._measure = (recorded_plan,
+                                                 recorded_measure)
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = SV.main(argv + ["--device", "cuda"])
+    except SystemExit as e:
+        rc = f"exit {e.code}"
+    except Exception as e:              # noqa: BLE001 — logged, then failed
+        rc = f"{type(e).__name__}: {e}"
+    finally:
+        XP.plan_serving, MM.CudaMeasurer._measure = plan_serving, measure
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = launch_counts()
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"[11{tag}] | {line}")
+    if rc != 0:
+        fail(f"phase 11({tag}): the serve CLI returned {rc}")
+    if len(plans) != 1:
+        fail(f"phase 11({tag}): plan_serving ran {len(plans)} times")
+    m = re.search(r"^WSMC\[serving/(\w+)\]: (\S+) -> (.*)$", out, re.M)
+    if m is None:
+        fail(f"phase 11({tag}): no WSMC plan line")
+    cls, splan = plans[0]
+    if m.group(2) != cls.category.value or m.group(3) != splan.describe():
+        fail(f"phase 11({tag}): the plan line does not print the plan")
+    if splan.hbm_budget != HW.H100.hbm_bytes:
+        fail(f"phase 11({tag}): planned for {splan.hbm_budget} bytes, not "
+             f"the H100's {HW.H100.hbm_bytes}")
+    mem = re.search(r"measured / predicted ([0-9.]+)", out)
+    done = re.search(r"completed=(\d+)", out)
+    if mem is None or done is None:
+        fail(f"phase 11({tag}): no memory or report line")
+    return {"out": out, "cls": cls, "splan": splan, "profiles": profiles,
+            "counts": counts, "wall": dt, "ratio": float(mem.group(1)),
+            "completed": int(done.group(1))}
+
+
+def phase_cli():
+    """Phase 11: the serve CLI plans and serves on the card (paged,
+    simulated and measured classification; ring)."""
+    res = {}
+    a = run_cli("a", CLI_PAGED)
+    n, cls, sp = a["completed"], a["cls"], a["splan"]
+    pool = re.search(r"^pool: (\d+) lanes, (\d+) blocks of (\d+) positions",
+                     a["out"], re.M)
+    c = a["counts"]
+    if n != 16 or "audits=" not in a["out"] or ":clean" not in a["out"]:
+        fail(f"phase 11(a): {n} of 16 requests completed, or the audit is "
+             "not clean")
+    if pool is None or int(pool.group(3)) != sp.kv_block \
+            or sp.kv_block not in XP.DEFAULT_KV_BLOCKS \
+            or int(pool.group(2)) != sp.pool_blocks(LANES,
+                                                    int(re.search(
+                                                        r"context (\d+)",
+                                                        a["out"]).group(1))):
+        fail("phase 11(a): the pool is not the plan's")
+    if (c["paged_decode"] <= 0 or c["paged_prefill"] <= 0
+            or c["flash_attention"] <= 0 or c["decode_attention"]
+            or c["mlstm_scan"] or c["flash_attention_bwd"]):
+        fail(f"phase 11(a): launches {c}")
+    log(f"[11a] mistral-nemo-12b through the serve CLI: class "
+        f"{cls.category.value} (alpha {cls.alpha!r}, inc {cls.inc!r}, "
+        f"simulated ladder) beside phase 3's hand-fixed "
+        f"{WORKLOAD.category.value}; plan_serving with HW.H100 chose "
+        f"kv_block={sp.kv_block} (of {XP.DEFAULT_KV_BLOCKS}), capacity "
+        f"{sp.capacity} lanes, {sp.blocks} blocks; pool {pool.group(1)} "
+        f"lanes x {pool.group(2)} blocks; {n}/16 requests, audit clean; "
+        f"launches paged decode {c['paged_decode']}, paged prefill "
+        f"{c['paged_prefill']}, flash {c['flash_attention']}; measured / "
+        f"predicted peak {a['ratio']}; {a['wall']:.2f}s")
+    res["a"] = a
+    b = run_cli("b", CLI_PAGED + ["--backend", "cuda"])
+    if b["completed"] != 16 or not b["profiles"]:
+        fail(f"phase 11(b): {b['completed']} of 16 requests, "
+             f"{len(b['profiles'])} measured profiles")
+    for p, t in b["profiles"]:
+        log(f"[11b] CudaMeasurer {p.shape_name} ({p.kind}, seq {p.seq_len}, "
+            f"batch {p.global_batch}): argument {p.argument_bytes:.0f} B, "
+            f"transient {p.transient_bytes:.0f} B, output "
+            f"{p.output_bytes:.0f} B, input {p.input_bytes:.0f} B, alpha "
+            f"{p.alpha!r}; {t:.2f}s")
+    cb = b["cls"]
+    log(f"[11b] class measured on the card {cb.category.value} (alpha "
+        f"{cb.alpha!r}, inc {cb.inc!r}) beside the simulator's "
+        f"{cls.category.value} (alpha {cls.alpha!r}, inc {cls.inc!r}) from "
+        f"{len(b['profiles'])} ladder point(s) (base_seq 64: every decode "
+        f"rung clamps to a 1024 context and dedupes, so inc is 1.0 by "
+        f"construction); plan {b['splan'].describe()}; measured / predicted "
+        f"peak {b['ratio']}; {b['wall']:.2f}s")
+    res["b"] = b
+    r = run_cli("c", CLI_RING)
+    c = r["counts"]
+    if r["completed"] != 8 or r["splan"].kv_block:
+        fail(f"phase 11(c): {r['completed']} of 8 requests, "
+             f"kv_block {r['splan'].kv_block}")
+    if (c["decode_attention"] <= 0 or c["flash_attention"] <= 0
+            or c["paged_decode"] or c["paged_prefill"] or c["mlstm_scan"]):
+        fail(f"phase 11(c): launches {c}")
+    log(f"[11c] gemma3-12b through the serve CLI's ring path: class "
+        f"{r['cls'].category.value}; capacity {r['splan'].capacity} slots; "
+        f"8/8 requests; launches ring decode {c['decode_attention']}, flash "
+        f"{c['flash_attention']}; measured / predicted peak {r['ratio']}; "
+        f"{r['wall']:.2f}s")
+    res["c"] = r
+    return res
+
+
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11}
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (1 always runs)")
     args = ap.parse_args()
     phases = {int(x) for x in args.phases.split(",")}
@@ -2759,6 +2931,11 @@ def main():
         rg = phase_ring_model("recurrentgemma-9b", 10, SEED + 10,
                               make_rgemma_trace(cfg))
         log(f"[10] phase 10 {time.time() - t0:.2f}s")
+    if 11 in phases:
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        phase_cli()
+        log(f"[11] phase 11 {time.time() - t0:.2f}s")
     if g3 is not None:
         rows.append(ring_row(g3, rg, errs["decode_attention"]))
         rows.append(slot_prefill_row(g3["cfg"], g3["slot"]["flash"],

@@ -71,6 +71,32 @@ def embedded_input_bytes(cfg: ModelConfig, shape: ShapeConfig,
     return float(toks * per_tok)
 
 
+def profile_from_measured(cfg: ModelConfig, shape: ShapeConfig,
+                          argument: float, transient: float, output: float,
+                          peak: float, n_devices: int,
+                          dp_size: int) -> MemoryProfile:
+    """The MemoryProfile of one step measured on a device: `argument` bytes
+    resident before the step (params, optimizer state, cache, inputs),
+    `transient` bytes the step allocated above them at its peak beyond its
+    `output` bytes (what it left allocated), `peak` the step's peak. The
+    counterpart of the reference package's profile_from_compiled, which
+    reads the same four numbers from XLA's memory analysis."""
+    return MemoryProfile(
+        arch=cfg.name,
+        shape_name=shape.name,
+        kind=shape.kind,
+        n_devices=n_devices,
+        seq_len=shape.seq_len,
+        global_batch=shape.global_batch,
+        n_stages=cfg.n_layers,
+        input_bytes=embedded_input_bytes(cfg, shape, n_devices, dp_size),
+        argument_bytes=float(argument),
+        transient_bytes=float(transient),
+        output_bytes=float(output),
+        reported_peak=float(peak),
+    )
+
+
 def expansion_ratio(profile: MemoryProfile) -> float:
     """Paper Eq. 4."""
     return profile.alpha
