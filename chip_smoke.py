@@ -7,6 +7,8 @@
     python3 chip_smoke.py --phases 1,9    # build + gemma3-12b ring/slot only
     python3 chip_smoke.py --phases 1,10   # build + recurrentgemma-9b only
     python3 chip_smoke.py --phases 1,11   # build + the serving CLI only
+    python3 chip_smoke.py --phases 1,12   # build + the training CLI only
+    python3 chip_smoke.py --phases 1,13   # build + MoE and prefix embeds only
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. device: the card's name and power limit, its properties beside the
@@ -45,7 +47,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      128, 256, every split count from 1 to the kernel's cap, rings wrapped
      at heterogeneous positions, inert lanes and empty rings (exact zeros),
      lengths no tile or warp group divides and the ring shapes of phases
-     6, 9 and 10.
+     6, 9, 10 and 13; flash and ring decode also at llama4-scout's (G 5)
+     and internvl2-26b's (G 6) heads.
   3. the main path at full width: mistral-nemo-12b, all 40 layers, random
      bf16 weights from a seed; the capacity model sizes the KV block pool;
      the engine serves a seeded trace of short and long prompts through
@@ -123,6 +126,33 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      alpha and inc beside (a)'s (printed, not asserted); (c) gemma3-12b
      through the ring path (TorchExecutor), 8 requests: ring decode and
      flash attention launch, the paged kernels do not.
+ 12. the training CLI (repro_torch.launch.train) in process through its
+     main(argv): h2o-danube-1.8b at full width and depth, [4, 2048], 4
+     steps, planned by the WSMC online phase under HW.H100, once with
+     --backend simulate and once with --backend cuda (the class from a
+     two-point ladder, seq 64 and 128, of train steps measured on the
+     card); each run's class, plan, predicted and measured peak and
+     flash launches (forward and backward, planning steps included, both
+     > 0); fails on a non-zero return or a measured peak above the card's
+     memory.
+ 13. MoE and prefix embeddings at full width: (a) mixtral-8x7b at 16 of
+     its 32 layers (depth the one cut; 47 GB of bf16 weights) through the
+     compacted chunked paged engine as in phase 3 (8 lanes, blocks of 16,
+     chunks of 256, a bf16 pool, 16 seeded requests with prompts of
+     64-2048, strict audit), launches counted exactly; four requests
+     replayed through greedy_generate with the engine's MoE routes (each
+     token's experts and the choices that found a capacity slot: the
+     engine routes a decode tick's whole lane batch and a chunk's pad
+     rows too, fault F13), each divergence printed with both logit gaps,
+     the rms logit difference up to it held under REL_BOUND;
+     (b) llama4-scout-17b-a16e at 2 of its 12 unit repeats (8 layers)
+     through greedy_generate, 4 seeded prompts of 64-512 tokens, 32 new
+     tokens each (flash and ring decode launches counted exactly); (c)
+     internvl2-26b at full depth: prefill_step over 1024 seeded bf16
+     prefix embeddings and a 200-token prompt, then 32 decode steps at
+     positions 1224 + t. (b) and (c) are held against the same steps
+     through the plain attention and ring decode, the plain run taking
+     the kernel run's MoE routes (REL_BOUND).
   then: each kernel timed at the largest shape its path launched it at
   (the paged kernels also at every shape phase 3 launched them at, with
   the launches each shape had and the sum of launches x time)
@@ -132,7 +162,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   256]), beside its plain version, its bound and (flash attention, forward
   and backward; ring decode) the one PyTorch call that computes the same
   function; the flash rows also with their TFLOP/s and share of 989
-  TFLOP/s; one JSON line `kernels`.
+  TFLOP/s; one JSON line `kernels`, where the launches of phases 12 and
+  13 are added to the rows of their kernels (`launches_by_phase`).
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -162,10 +193,12 @@ if not torch.cuda.is_available():
 
 from repro_torch import hw as HW  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import (DECODE, TRAIN, BlockSpec,  # noqa: E402
-                                      ShapeConfig, depth_variant)
+from repro_torch.configs.base import (DECODE, MLP_MOE, TRAIN,  # noqa: E402
+                                      BlockSpec, ShapeConfig, depth_variant,
+                                      param_count)
 from repro_torch.core import classifier as CL, predictor as PR  # noqa: E402
 from repro_torch.core import measure as MM  # noqa: E402
+from repro_torch.core import profiler as PF  # noqa: E402
 from repro_torch.kernels import (build, decode_attention,  # noqa: E402
                                  flash_attention, flash_attention_bwd,
                                  mlstm_scan, paged_decode, paged_prefill)
@@ -175,6 +208,7 @@ from repro_torch.launch import serve as SV  # noqa: E402
 from repro_torch.launch import train as LT  # noqa: E402
 from repro_torch.models import ModelSettings, init_params  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import recurrent as R  # noqa: E402
 from repro_torch.optim import optimizers as OPT  # noqa: E402
 from repro_torch.runtime import fault as FT  # noqa: E402
@@ -324,6 +358,8 @@ _POOL_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 MN = dict(K=8, G=4, hd=128)      # mistral-nemo-12b's attention heads
 GM = dict(K=8, G=2, hd=256)      # gemma3-12b's
 RG = dict(K=1, G=16, hd=256)     # recurrentgemma-9b's (MQA)
+SC = dict(K=8, G=5, hd=128)      # llama4-scout-17b-a16e's
+VL = dict(K=8, G=6, hd=128)      # internvl2-26b's
 
 
 def make_pool(gen, *, lens, K, hd, bs, m_blocks, codec, extra_blocks=3):
@@ -925,6 +961,20 @@ def phase_kernels():
       window=1024, **GM)
     f("rgemma prefill [1, 3000, 16, 256] window2048 bf16", b=1, s=3000,
       window=2048, **RG)
+    # phase 13's head layouts: llama4-scout's chunk-local (chunk 8192) and
+    # global layers (G 5) at the greedy prefills' lengths and across chunk
+    # edges, internvl2-26b's (G 6) prefix prefill [1, 1224, 48, 128]
+    for qdt in (torch.float32, torch.bfloat16):
+        t = "f32" if qdt == torch.float32 else "bf16"
+        f(f"scout chunk-local s512 chunk8192 {t}", b=1, s=512, chunk=8192,
+          qdt=qdt, **SC)
+        f(f"scout global ragged s384 {t}", b=2, s=384, lens=[384, 64],
+          qdt=qdt, **SC)
+        f(f"internvl ragged s300 {t}", b=2, s=300, lens=[300, 201], qdt=qdt,
+          **VL)
+    f("scout chunk-local s1100 chunk512 ragged bf16", b=2, s=1100, chunk=512,
+      lens=[1100, 700], **SC)
+    f("internvl prefix prefill [1, 1224, 48, 128] bf16", b=1, s=1224, **VL)
     errs["flash_attention_train"] = flash_case(
         gen, "flash train [4, 2048, 32, 80] window4096", b=4, s=2048,
         window=4096, **DN)
@@ -1119,6 +1169,19 @@ def phase_kernels():
           qdt=torch.float32)
     r("bf16 q f32 ring G16 hd64 window300 after a wrap", L=700, K=1, G=16,
       hd=64, ends=[1500, 699], window=300, kvdt=torch.float32)
+    # phase 13's rings: llama4-scout's global and chunk-local layers (G 5)
+    # at the greedy context (544 slots) and at a whole chunk, wrapped, with
+    # a chunk edge inside the ring; internvl2-26b's (G 6) after the prefix
+    for dt in (torch.float32, torch.bfloat16):
+        t = "f32" if dt == torch.float32 else "bf16"
+        r(f"scout global [4, 544] wrapped {t}", L=544, qdt=dt,
+          ends=[543, 63, 300, 1000], **SC)
+        r(f"scout chunk-local [4, 544] chunk8192 {t}", L=544, chunk=8192,
+          qdt=dt, ends=[543, 200, 9000, 8200], **SC)
+        r(f"scout chunk-local [2, 8192] chunk8192 wrapped {t}", L=8192,
+          chunk=8192, qdt=dt, ends=[9000, 20000], **SC)
+        r(f"internvl [3, 1256] {t}", L=1256, qdt=dt,
+          ends=[1255, 1224, 3000], **VL)
     r("G12 hd80 (a partial query-row group, a partial lane group)", L=333,
       K=2, G=12, hd=80, ends=[1000, 200])
     log(f"[2] {n} kernel-vs-plain cases agree on the card: max abs err "
@@ -1146,9 +1209,9 @@ def phase_kernels():
 
 KV_BLOCK, LANES, CHUNK = 16, 8, 256
 HBM_BUDGET = 72e9       # bytes of the card the deployment may plan for
-# The profiling front end (core/profiler) is not ported yet, so the workload
-# class the capacity model needs is fixed by hand: Medium (paper Table III
-# factor 2), the class the reference package's simulator assigns decode.
+# Phase 3 sizes its pool under a workload class fixed by hand: Medium (paper
+# Table III factor 2), the class the reference package's simulator assigns
+# decode. Phase 11 plans the same trace through the profiler instead.
 WORKLOAD = CL.Classification(category=CL.Category.MEDIUM, alpha=0.8, inc=1.0,
                              slope=0.8, intercept=0.0)
 MESH = {"data": 1, "model": 1}
@@ -1292,9 +1355,10 @@ def tick_times(ex):
 
 
 def serve(cfg, params, trace, context, n_blocks, kv_quant, backend="kernel",
-          record=False, keep_logits=False, prefill_budget=0):
+          record=False, keep_logits=False, prefill_budget=0,
+          recorder=None):
     kw = dict(keep_logits=keep_logits) if record else {}
-    cls = RecordingExecutor if record else ClockedExecutor
+    cls = (recorder or RecordingExecutor) if record else ClockedExecutor
     ex = cls(params, cfg, n_lanes=LANES, n_blocks=n_blocks, kv_block=KV_BLOCK,
              context=context, compact=True, chunk=CHUNK, kv_quant=kv_quant,
              settings=SETTINGS[backend], device=DEV, **kw)
@@ -1470,14 +1534,18 @@ def top2_gap(logits):
     return ((top[:, 0] - top[:, 1]) / lg.std(dim=-1)).cpu().numpy()
 
 
-def greedy_gaps(cfg, params, prompt, n_steps, context, settings=None):
+def greedy_gaps(cfg, params, prompt, n_steps, context, settings=None,
+                prefix=None):
     """greedy_generate's steps one by one, with row 0's tokens, top-2 gaps
     and logits (on the host). `prompt` [b, p]: every row decodes its own
-    argmax."""
+    argmax. With `prefix` [b, n, d] the prefill takes those prefix
+    embeddings before the prompt, and decode starts at position n + p."""
     prefill = SS.make_prefill_step(cfg, settings)
     decode = SS.make_decode_step(cfg, settings)
     b = prompt.shape[0]
-    logits, cache = prefill(params, prompt, context=context)
+    base = prompt.shape[1] + (0 if prefix is None else prefix.shape[1])
+    logits, cache = prefill(params, prompt, context=context,
+                            prefix_embeds=prefix)
     toks, gaps, rows = [], [], []
     for t in range(n_steps):
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -1485,8 +1553,7 @@ def greedy_gaps(cfg, params, prompt, n_steps, context, settings=None):
         gaps.append(float(top2_gap(logits)[0]))
         rows.append(logits[0].float().cpu())
         if t + 1 < n_steps:
-            pos = torch.full((b,), prompt.shape[1] + t, dtype=torch.int32,
-                             device=DEV)
+            pos = torch.full((b,), base + t, dtype=torch.int32, device=DEV)
             logits, cache = decode(params, tok[:, None], pos, cache,
                                    context=context)
     return toks, gaps, rows
@@ -2105,6 +2172,17 @@ REL_GRAD_BOUND = 0.05
 REL_LOSS_BOUND = 1e-4
 
 
+def train_class(cfg):
+    """The class the simulator's two-point ladder (seq 64, 128) assigns
+    phase 8's training step (Expanding.Medium, alpha 29.79): phase 8's
+    predictions are made under it, as the trainer's on --backend
+    simulate."""
+    shape = ShapeConfig("train", TRAIN, TR_SEQ, TR_BATCH)
+    return PF.classify_workload(cfg, shape, MESH, n_points=2,
+                                base_seq=min(64, TR_SEQ),
+                                measurer=MM.SimulatedMeasurer(MESH))
+
+
 def _bytes_of(tree):
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
@@ -2157,7 +2235,8 @@ def train_plan(cfg, params, pipe, kind, remat, micro, steps):
              f"backward {want_b}, nothing else")
     shape = ShapeConfig("train", TRAIN, TR_SEQ, TR_BATCH)
     res, tra = LT.predicted_bytes(cfg, shape, PR.MemoryPlan(
-        remat=remat, microbatches=micro, optimizer=kind))
+        remat=remat, microbatches=micro, optimizer=kind), train_class(cfg),
+        MESH)
     step_s = [b - a for a, b in zip([t0] + times[:-1], times)]
     return {"plan": f"{kind}/remat={remat}/microbatches={micro}",
             "steps": steps, "loss": [h["loss"] for h in hist],
@@ -2881,12 +2960,564 @@ def phase_cli():
     return res
 
 
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11}
+# ---------------------------------------------------------------------------
+# Phase 12: the trainer's WSMC online phase on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_CLI = ["--arch", TR_ARCH, "--seq", str(TR_SEQ), "--batch",
+             str(TR_BATCH), "--steps", "4", "--lr", str(TR_LR),
+             "--log-every", "1", "--seed", str(TR_SEED)]
+
+
+def run_train_cli(backend):
+    """LT.main(TRAIN_CLI + --backend) in process, its standard output
+    captured and logged line by line; the classification and every
+    CudaMeasurer profile recorded by wrapping them for the run; launch
+    counters zeroed just before and read just after. Fails the run on a
+    non-zero return, an exit or an exception."""
+    classes, profiles = [], []
+    classify, measure = PF.classify_workload, MM.CudaMeasurer._measure
+
+    def recorded_classify(*a, **kw):
+        classes.append(classify(*a, **kw))
+        return classes[-1]
+
+    def recorded_measure(self, *a, **kw):
+        t0 = time.time()
+        profiles.append((measure(self, *a, **kw), time.time() - t0))
+        return profiles[-1][0]
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _zero_launches()
+    buf = io.StringIO()
+    PF.classify_workload, MM.CudaMeasurer._measure = (recorded_classify,
+                                                      recorded_measure)
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = LT.main(TRAIN_CLI + ["--backend", backend,
+                                      "--device", "cuda"])
+    except SystemExit as e:
+        rc = f"exit {e.code}"
+    except Exception as e:              # noqa: BLE001 — logged, then failed
+        rc = f"{type(e).__name__}: {e}"
+    finally:
+        PF.classify_workload, MM.CudaMeasurer._measure = classify, measure
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = launch_counts()
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"[12] {backend} | {line}")
+    if rc != 0:
+        fail(f"phase 12 ({backend}): the trainer returned {rc}")
+    plan = re.search(rf"^WSMC\[fastest/{backend}\]: (\S+) .* -> plan "
+                     r"(MemoryPlan\(.*?\)) ", out, re.M)
+    execution = re.search(r"^execution: (.*)$", out, re.M)
+    mem = re.search(r"max_memory_allocated\(\) ([0-9.]+) GB; predicted "
+                    r"([0-9.]+) GB; measured / predicted ([0-9.]+)", out)
+    losses = [float(x) for x in re.findall(r"^step +\d+ loss=([0-9.]+)",
+                                           out, re.M)]
+    if plan is None or execution is None or mem is None or len(classes) != 1:
+        fail(f"phase 12 ({backend}): no plan, execution or memory line, or "
+             f"{len(classes)} classifications")
+    if plan.group(1) != classes[0].category.value:
+        fail(f"phase 12 ({backend}): the plan line does not print the class")
+    if len(losses) != 4 or not all(np.isfinite(losses)):
+        fail(f"phase 12 ({backend}): losses {losses}")
+    peak = float(mem.group(1)) * 1e9
+    total = torch.cuda.get_device_properties(0).total_memory
+    if peak > total:
+        fail(f"phase 12 ({backend}): measured peak {peak:.0f} B exceeds the "
+             f"card's {total} B")
+    if (counts["flash_attention"] <= 0 or counts["flash_attention_bwd"] <= 0
+            or any(counts[k] for k in ("paged_decode", "paged_prefill",
+                                       "mlstm_scan", "decode_attention"))):
+        fail(f"phase 12 ({backend}): launches {counts}")
+    if backend == "cuda" and not profiles:
+        fail("phase 12 (cuda): no step was measured on the card")
+    if backend == "simulate" and profiles:
+        fail("phase 12 (simulate): the simulator ran steps on the card")
+    return {"cls": classes[0], "plan": plan.group(2),
+            "execution": execution.group(1), "peak": peak,
+            "predicted": float(mem.group(2)) * 1e9,
+            "ratio": float(mem.group(3)), "profiles": profiles,
+            "counts": counts, "wall": dt, "losses": losses}
+
+
+def phase_train_cli():
+    """Phase 12: the trainer plans its own memory configuration on the
+    card, classified by the simulator and then by steps on the card."""
+    runs = {b: run_train_cli(b) for b in ("simulate", "cuda")}
+    sim, card = runs["simulate"], runs["cuda"]
+    for p, t in card["profiles"]:
+        log(f"[12] CudaMeasurer {p.shape_name} ({p.kind}, seq {p.seq_len}, "
+            f"batch {p.global_batch}): argument {p.argument_bytes:.0f} B, "
+            f"transient {p.transient_bytes:.0f} B, output "
+            f"{p.output_bytes:.0f} B, alpha {p.alpha!r}; {t:.2f}s")
+    cs, cc = sim["cls"], card["cls"]
+    log(f"[12] {TR_ARCH} at [{TR_BATCH}, {TR_SEQ}]: class measured on the "
+        f"card {cc.category.value} (alpha {cc.alpha!r}, inc {cc.inc!r}) "
+        f"beside the simulator's {cs.category.value} (alpha {cs.alpha!r}, "
+        f"inc {cs.inc!r}), from {len(card['profiles'])} ladder steps on the "
+        f"card in {sum(t for _, t in card['profiles']):.2f}s")
+    for name, r in runs.items():
+        log(f"[12] --backend {name}: plan under HW.H100 {r['plan']}; "
+            f"execution {r['execution']}; predicted peak "
+            f"{r['predicted'] / 1e9:.3f} GB, "
+            f"torch.cuda.max_memory_allocated() {r['peak'] / 1e9:.3f} GB, "
+            f"measured / predicted {r['ratio']} (phase 8's plans, under "
+            f"the simulator's class, print theirs); flash launches "
+            f"forward {r['counts']['flash_attention']}, backward "
+            f"{r['counts']['flash_attention_bwd']} (planning steps "
+            f"included); losses {r['losses']}; {r['wall']:.2f}s")
+    return {"fwd": sum(r["counts"]["flash_attention"] for r in runs.values()),
+            "bwd": sum(r["counts"]["flash_attention_bwd"]
+                       for r in runs.values())}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: MoE and prefix embeddings at full width
+# ---------------------------------------------------------------------------
+
+MX_ARCH, MX_UNITS, MX_SEED = "mixtral-8x7b", 16, SEED + 13
+SC_ARCH, SC_UNITS, SC_SEED = "llama4-scout-17b-a16e", 2, SEED + 14
+SC_PROMPTS, SC_NEW = (64, 200, 384, 512), 32
+VL_ARCH, VL_SEED, VL_TEXT, VL_DECODES = "internvl2-26b", SEED + 15, 200, 32
+
+
+@contextlib.contextmanager
+def routing(hook):
+    """moe.route replaced by hook(route, params, cfg, h) for the duration
+    (the MoE layers call it through the module)."""
+    route = MOE.route
+    MOE.route = lambda params, cfg, h: hook(route, params, cfg, h)
+    try:
+        yield
+    finally:
+        MOE.route = route
+
+
+def kept_choices(dispatch, gate_idx):
+    """[b, s, k] bool: each token's choices that found a capacity slot."""
+    return dispatch.sum(-1).gather(-1, gate_idx) > 0
+
+
+def forced_route(params, cfg, h, experts, kept):
+    """moe.route's outputs for h [b, s, d] with each token's experts and
+    kept choices [b, s, k] given: the gates come from this path's own
+    router, renormalised over the given experts as moe.route does, and
+    every kept choice has a slot of its own (capacity decides nothing)."""
+    b, s, _ = h.shape
+    E, k = cfg.n_experts, experts.shape[-1]
+    logits = torch.matmul(h.float(), params["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    gates = probs.gather(-1, experts)
+    gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+    sel = torch.nn.functional.one_hot(experts, E) * kept[..., None]
+    flat = sel.reshape(b, s * k, E)                       # [b, s*k, E]
+    slot = (torch.cumsum(flat, dim=1) - flat).reshape(b, s, k, E)
+    C = max(1, int(flat.sum(dim=1).max()))
+    dispatch = torch.zeros((b, s, E, C), dtype=h.dtype, device=h.device)
+    combine = torch.zeros((b, s, E, C), dtype=torch.float32, device=h.device)
+    for j in range(k):
+        oh = (torch.nn.functional.one_hot(slot[:, :, j].clamp(max=C - 1), C)
+              * sel[:, :, j, :, None]).to(h.dtype)        # [b, s, E, C]
+        dispatch = dispatch + oh
+        combine = combine + oh.float() * gates[..., j, None, None]
+    return dispatch, combine, experts, logits, probs
+
+
+def greedy_routes_hook(cfg, p, routes, force=False):
+    """A routing hook for one greedy stream (batch 1) over a prompt of p
+    tokens: its prefill routes positions 0..p-1 through each MoE layer in
+    turn, then every decode step the next position. Records each (MoE
+    layer, position)'s experts and kept choices [k] into `routes` or, with
+    `force`, makes each take those."""
+    n_moe = sum(b.mlp == MLP_MOE for b in cfg.blocks())
+    calls = [0]
+
+    def hook(route, params, cfg_, h):
+        step, layer = divmod(calls[0], n_moe)
+        calls[0] += 1
+        pos = range(p) if step == 0 else [p + step - 1]
+        if tuple(h.shape[:2]) != (1, len(pos)):
+            fail(f"a greedy MoE call of shape {tuple(h.shape)} at step "
+                 f"{step}, want [1, {len(pos)}]")
+        if force:
+            ex, kp = (torch.stack([routes[layer, q][j] for q in pos])[None]
+                      .to(h.device) for j in (0, 1))
+            return forced_route(params, cfg_, h, ex, kp)
+        out = route(params, cfg_, h)
+        ex, kp = out[2][0].cpu(), kept_choices(out[0], out[2])[0].cpu()
+        for i, q in enumerate(pos):
+            routes[layer, q] = (ex[i], kp[i])
+        return out
+    return hook
+
+
+class RouteRecordingExecutor(RecordingExecutor):
+    """RecordingExecutor that also keeps, for every call and fed row, the
+    MoE routes of the row's real positions, MoE layer by layer: the experts
+    and the kept choices [layers, n, k] (`fed_routes`). A chunk or a prompt
+    (never longer than ModelSettings.moe_group) routes as one group a row,
+    a decode tick as one group over the batch."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.fed_routes = []
+
+    def _routed(self, run, real, decode=False):
+        got = []
+
+        def hook(route, params, cfg, h):
+            out = route(params, cfg, h)
+            got.append((out[2], kept_choices(out[0], out[2])))
+            return out
+        with routing(hook):
+            out = run()
+        ex, kp = (torch.stack([g[j].reshape(-1, 1, g[j].shape[-1])
+                               if decode else g[j] for g in got]).cpu()
+                  for j in (0, 1))
+        self.fed_routes.append([(f, ex[:, r, :n], kp[:, r, :n])
+                                for f, r, n in zip(self._fed, self._rows,
+                                                   real)])
+        return out
+
+    def decode(self, tokens, positions, tables=None, lanes=None):
+        n = len(lanes if lanes is not None else tokens)
+        return self._routed(
+            lambda: super(RouteRecordingExecutor, self).decode(
+                tokens, positions, tables, lanes), [1] * n, decode=True)
+
+    def prefill_batch(self, lanes, prompts, tables=None):
+        return self._routed(
+            lambda: super(RouteRecordingExecutor, self).prefill_batch(
+                lanes, prompts, tables), [len(p) for p in prompts])
+
+    def prefill_chunks(self, lanes, chunks, starts, *a, **kw):
+        return self._routed(
+            lambda: super(RouteRecordingExecutor, self).prefill_chunks(
+                lanes, chunks, starts, *a, **kw), [len(c) for c in chunks])
+
+
+def engine_routes(ex, prompt, tokens):
+    """{(MoE layer, position): (experts [k], kept [k])} of one request in
+    the engine: its prompt, and each decode input that chose tokens[1:]."""
+    P, out = tuple(prompt), {}
+    dec = {(tokens[t - 1], len(P) + t - 1) for t in range(1, len(tokens))}
+    for call in ex.fed_routes:
+        for f, e, kp in call:
+            if isinstance(f[0], tuple):
+                if P[f[1]:f[1] + len(f[0])] != f[0]:
+                    continue
+                pos = range(f[1], f[1] + len(f[0]))
+            elif f in dec:
+                pos = [f[1]]
+            else:
+                continue
+            for li in range(e.shape[0]):
+                for i, q in enumerate(pos):
+                    out[li, q] = (e[li, i], kp[li, i])
+    return out
+
+
+def phase_mixtral():
+    """Phase 13(a): mixtral-8x7b at MX_UNITS of its 32 layers through the
+    compacted chunked paged engine (bf16 pool), then four requests through
+    greedy_generate with the engine's MoE routes. Returns the launches."""
+    full = get_config(MX_ARCH)
+    cfg = depth_variant(full, MX_UNITS)
+    gen = torch.Generator(device=DEV).manual_seed(MX_SEED)
+    t0 = time.time()
+    params = init_params(gen, cfg, device=DEV)
+    torch.cuda.synchronize()
+    w_bytes = _bytes_of(params)
+    log(f"[13a] {cfg.name}: {cfg.n_layers} of {full.n_layers} layers (depth "
+        f"the one cut: all {full.n_layers} are "
+        f"{param_count(full) * 2 / 1e9:.1f} GB in bf16), d_model {cfg.d_model}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} of d_ff {cfg.d_ff}, "
+        f"capacity factor {cfg.capacity_factor}, window "
+        f"{cfg.unit[0].window}: {w_bytes / 1e9:.3f} GB of bf16 weights made "
+        f"on the card from seed {MX_SEED} in {time.time() - t0:.1f}s")
+    trace = synthetic_trace(16, vocab_size=cfg.vocab_size, seed=MX_SEED,
+                            prompt_lens=(64, 200, 256, 520, 1024, 2048),
+                            gen_lens=(16, 24, 32), mean_interarrival=2.0)
+    context = trace_context(trace)
+    plan = plan_pool(cfg, trace, context, "none")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    ex, rep, dt = serve(cfg, params, trace, context, plan["pool_blocks"],
+                        "none", record=True, keep_logits=True,
+                        recorder=RouteRecordingExecutor)
+    nd, npf, nfa = (paged_decode.launches, paged_prefill.launches,
+                    flash_attention.launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"paged_decode": cfg.n_layers * ex.decodes,
+            "paged_prefill": cfg.n_layers * ex.chunk_calls,
+            "flash_attention": cfg.n_layers * rep.prefill_calls}
+    check_launches("13a", "the paged engine", launch_counts(), want)
+    if rep.prefill_calls <= 0 or ex.chunk_calls <= 0:
+        fail("13a: both prefill paths must run")
+    pred = plan["resident"] + plan["transient"]
+    eng_drops = sum(int((~kp).sum()) for call in ex.fed_routes
+                    for _, _, kp in call)
+    log(f"[13a] paged engine: {len(rep.completions)}/{len(trace)} requests, "
+        f"{rep.prefill_tokens} prompt tokens ({rep.prefill_calls} "
+        f"whole-prompt prefill calls, {ex.chunk_calls} chunk calls), "
+        f"{ex.decodes} decode ticks, {dt:.2f}s wall ({tick_times(ex)}); "
+        f"audit clean; launches paged decode {nd} = {cfg.n_layers} x "
+        f"{ex.decodes}, paged prefill {npf} = {cfg.n_layers} x "
+        f"{ex.chunk_calls}, flash {nfa} = {cfg.n_layers} x "
+        f"{rep.prefill_calls}; pool {plan['pool_blocks']} blocks; predicted "
+        f"{pred / 1e9:.3f} GB (resident {plan['resident'] / 1e9:.3f} + "
+        f"transient {plan['transient'] / 1e9:.3f}), "
+        f"torch.cuda.max_memory_allocated() {peak / 1e9:.3f} GB, measured / "
+        f"predicted {peak / pred:.4f}; MoE choices dropped for want of "
+        f"capacity over the requests' real positions: {eng_drops}")
+    # The engine routes a decode tick's whole lane batch, and a chunk with
+    # its pad rows, as one group (F13): its capacity drops, and a router
+    # near-tie that rounding moves, are its own. The replay takes the
+    # engine's experts and kept choices token by token, so that the two
+    # paths compute the same function and differ by rounding alone.
+    rids = greedy_subset(trace)
+    by_rid = {r.rid: r for r in trace}
+    eng = {c.rid: list(c.tokens) for c in rep.completions}
+    forced = {rid: engine_routes(ex, by_rid[rid].prompt, eng[rid])
+              for rid in rids}
+    _zero_launches()
+    t0 = time.time()
+    outs = {}
+    for rid in rids:
+        req = by_rid[rid]
+        prompt = torch.tensor([req.prompt], dtype=torch.int32, device=DEV)
+        with routing(greedy_routes_hook(cfg, len(req.prompt), forced[rid],
+                                        force=True)):
+            outs[rid] = SS.greedy_generate(params, cfg, prompt, req.max_new,
+                                           context)[0].tolist()
+    torch.cuda.synchronize()
+    gdt = time.time() - t0
+    steps = sum(by_rid[r].max_new - 1 for r in rids)
+    check_launches("13a", "greedy_generate", launch_counts(),
+                   {"flash_attention": cfg.n_layers * len(rids),
+                    "decode_attention": cfg.n_layers * steps})
+    greedy_launches = launch_counts()
+    equal, worst = 0, 0.0
+    for rid in rids:
+        g, e, req = outs[rid], eng[rid], by_rid[rid]
+        prompt = torch.tensor([req.prompt], dtype=torch.int32, device=DEV)
+        with routing(greedy_routes_hook(cfg, len(req.prompt), forced[rid],
+                                        force=True)):
+            toks, gaps, rows = greedy_gaps(cfg, params, prompt, req.max_new,
+                                           context)
+        if toks != g:
+            fail(f"13a request {rid}: greedy_generate and its steps one by "
+                 "one emit different tokens")
+        d = next((i for i in range(len(g)) if g[i] != e[i]), len(g) - 1)
+        erows = [engine_row(ex.calls, req.prompt, e, t) for t in range(d + 1)]
+        rel = [rel_diff(rows[t], erows[t][1]) for t in range(d + 1)]
+        worst = max(worst, max(rel))
+        if g == e:
+            equal += 1
+            log(f"[13a]   request {rid} ({len(req.prompt)} prompt tokens): "
+                f"{len(g)} tokens equal; largest rms logit difference "
+                f"{max(rel):.4f}")
+        else:
+            log(f"[13a]   request {rid} ({len(req.prompt)} prompt tokens): "
+                f"first divergence at token {d}: greedy {g[d]} (top-2 gap "
+                f"{gaps[d]:.4f} of its logit std), engine {e[d]} (gap "
+                f"{erows[d][0]:.4f}); rms logit difference by token 0..{d}: "
+                f"{[round(x, 4) for x in rel]}")
+    log(f"[13a] greedy_generate with the engine's MoE routes, "
+        f"{cfg.n_layers} layers, requests {list(rids)} (prompts "
+        f"{[len(by_rid[r].prompt) for r in rids]} tokens) in {gdt:.2f}s: "
+        f"{equal}/{len(rids)} streams equal to the engine's token for "
+        f"token; flash launches {greedy_launches['flash_attention']}, ring "
+        f"decode launches {greedy_launches['decode_attention']}; largest "
+        f"rms logit difference up to a first divergence {worst:.4f} (bound "
+        f"{REL_BOUND})")
+    if worst >= REL_BOUND:
+        fail("13a: greedy and engine logits apart by more than rounding "
+             "drift with the same MoE routes")
+    return {"paged_decode": nd, "paged_prefill": npf, "flash_engine": nfa,
+            "flash_greedy": greedy_launches["flash_attention"],
+            "decode_attention": greedy_launches["decode_attention"]}
+
+
+def judge_plain(tag, cfg, params, prompt, n_steps, context, want,
+                prefix=None):
+    """The greedy steps through the kernels (their tokens must be `want`,
+    the entry point's) and through the plain versions (attention and ring
+    decode), from the same weights and inputs, the plain run's MoE layers
+    made to take the kernel run's routes: the rms logit difference up to
+    the first divergence must stay below REL_BOUND. Returns (tokens equal
+    up to, rms differences)."""
+    routes = {}
+
+    def routed(force):
+        if not any(b.mlp == MLP_MOE for b in cfg.blocks()):
+            return contextlib.nullcontext()
+        return routing(greedy_routes_hook(cfg, prompt.shape[1], routes,
+                                          force))
+    with routed(False):
+        toks, _, rows = greedy_gaps(cfg, params, prompt, n_steps, context,
+                                    prefix=prefix)
+    if toks != want:
+        fail(f"[{tag}] the entry point and its steps one by one emit "
+             "different tokens")
+    with routed(True):
+        ptoks, _, prows = greedy_gaps(cfg, params, prompt, n_steps, context,
+                                      SETTINGS["naive"], prefix=prefix)
+    n = next((i for i in range(n_steps) if toks[i] != ptoks[i]), n_steps)
+    rel = [rel_diff(rows[t], prows[t]) for t in range(min(n + 1, n_steps))]
+    if max(rel) >= REL_BOUND:
+        fail(f"[{tag}] kernels and plain versions apart by more than "
+             f"rounding drift: {rel}")
+    return n, rel
+
+
+def phase_scout():
+    """Phase 13(b): llama4-scout-17b-a16e at SC_UNITS of its 12 unit
+    repeats through greedy_generate."""
+    full = get_config(SC_ARCH)
+    cfg = depth_variant(full, SC_UNITS)
+    gen = torch.Generator(device=DEV).manual_seed(SC_SEED)
+    t0 = time.time()
+    params = init_params(gen, cfg, device=DEV)
+    torch.cuda.synchronize()
+    log(f"[13b] {cfg.name}: {cfg.n_layers} of {full.n_layers} layers "
+        f"({SC_UNITS} of {full.repeats} unit repeats of 3 chunked-local + 1 "
+        f"global; depth the one cut), "
+        f"d_model {cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k}, "
+        f"vocab {cfg.vocab_size}: {_bytes_of(params) / 1e9:.3f} GB of bf16 "
+        f"weights from seed {SC_SEED} in {time.time() - t0:.1f}s")
+    rng = np.random.default_rng(SC_SEED)
+    prompts = [torch.tensor(rng.integers(0, cfg.vocab_size, (1, p)),
+                            dtype=torch.int32, device=DEV)
+               for p in SC_PROMPTS]
+    context = max(SC_PROMPTS) + SC_NEW
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.time()
+    outs = [SS.greedy_generate(params, cfg, p, SC_NEW, context)[0].tolist()
+            for p in prompts]
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = launch_counts()
+    check_launches("13b", "greedy_generate", counts,
+                   {"flash_attention": cfg.n_layers * len(prompts),
+                    "decode_attention": cfg.n_layers * len(prompts)
+                    * (SC_NEW - 1)})
+    for o in outs:
+        if len(o) != SC_NEW or not all(0 <= t < cfg.padded_vocab_size
+                                       for t in o):
+            fail(f"13b: bad token stream {o}")
+    peak = torch.cuda.max_memory_allocated()
+    judged = [judge_plain("13b", cfg, params, p, SC_NEW, context, o)
+              for p, o in zip(prompts, outs)]
+    log(f"[13b] greedy_generate, prompts {list(SC_PROMPTS)} tokens, "
+        f"{SC_NEW} new tokens each, in {dt:.2f}s: launches flash "
+        f"{counts['flash_attention']}, ring decode "
+        f"{counts['decode_attention']}; "
+        f"torch.cuda.max_memory_allocated() {peak / 1e9:.3f} GB; against "
+        f"the plain attention and ring decode with the kernel run's MoE "
+        f"routes: tokens equal up to {[j[0] for j in judged]} of {SC_NEW}, "
+        f"largest rms logit difference up to a first divergence "
+        f"{max(max(j[1]) for j in judged):.4f} (bound {REL_BOUND})")
+    return counts
+
+
+def phase_internvl():
+    """Phase 13(c): internvl2-26b at full depth: prefill_step over 1024
+    bf16 prefix embeddings and a text prompt, then VL_DECODES decode
+    steps at positions 1024 + p + t."""
+    cfg = get_config(VL_ARCH)
+    gen = torch.Generator(device=DEV).manual_seed(VL_SEED)
+    t0 = time.time()
+    params = init_params(gen, cfg, device=DEV)
+    torch.cuda.synchronize()
+    log(f"[13c] {cfg.name}: all {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_prefix_embeds} prefix embeddings: "
+        f"{_bytes_of(params) / 1e9:.3f} GB of bf16 weights from seed "
+        f"{VL_SEED} in {time.time() - t0:.1f}s")
+    n = cfg.n_prefix_embeds
+    prefix = torch.randn((1, n, cfg.d_model), generator=gen,
+                         device=DEV).to(torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (1, VL_TEXT), generator=gen,
+                           device=DEV, dtype=torch.int32)
+    context = n + VL_TEXT + VL_DECODES
+    prefill = SS.make_prefill_step(cfg)
+    decode = SS.make_decode_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.time()
+    logits, cache = prefill(params, prompt, context=context,
+                            prefix_embeds=prefix)
+    toks = [torch.argmax(logits, dim=-1).to(torch.int32)]
+    for t in range(VL_DECODES):
+        pos = torch.full((1,), n + VL_TEXT + t, dtype=torch.int32,
+                         device=DEV)
+        logits, cache = decode(params, toks[-1][:, None], pos, cache,
+                               context=context)
+        toks.append(torch.argmax(logits, dim=-1).to(torch.int32))
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    out = [int(t[0]) for t in toks]
+    counts = launch_counts()
+    check_launches("13c", "prefix prefill and decode", counts,
+                   {"flash_attention": cfg.n_layers,
+                    "decode_attention": cfg.n_layers * VL_DECODES})
+    if not torch.isfinite(logits).all() or \
+            not all(0 <= t < cfg.padded_vocab_size for t in out):
+        fail(f"13c: bad logits or tokens {out}")
+    peak = torch.cuda.max_memory_allocated()
+    del cache
+    eq, rel = judge_plain("13c", cfg, params, prompt,
+                                VL_DECODES + 1, context, out, prefix=prefix)
+    log(f"[13c] prefill of {n} prefix embeddings + {VL_TEXT} text tokens, "
+        f"then {VL_DECODES} decode steps at positions {n + VL_TEXT}.."
+        f"{n + VL_TEXT + VL_DECODES - 1}, in {dt:.2f}s: launches flash "
+        f"{counts['flash_attention']}, ring decode "
+        f"{counts['decode_attention']}; torch.cuda.max_memory_allocated() "
+        f"{peak / 1e9:.3f} GB; against the plain attention and ring decode: "
+        f"tokens equal up to {eq} of {VL_DECODES + 1}, largest rms logit "
+        f"difference up to a first divergence {max(rel):.4f} (bound "
+        f"{REL_BOUND})")
+    return counts
+
+
+def phase_moe_prefix():
+    res = {}
+    for tag, fn in (("a", phase_mixtral), ("b", phase_scout),
+                    ("c", phase_internvl)):
+        t0 = time.time()
+        res[tag] = fn()
+        torch.cuda.empty_cache()
+        log(f"[13{tag}] phase 13({tag}) {time.time() - t0:.2f}s")
+    return res
+
+
+def add_launches(rows, name, phase, n):
+    """Adds `n` launches of phase `phase` to the row `name` of the kernels
+    line (its `launches` and its `launches_by_phase`)."""
+    for r in rows:
+        if r["name"] == name:
+            r["launches"] += n
+            r.setdefault("launches_by_phase", {})[phase] = n
+            return
+    fail(f"no kernels row {name}")
+
+
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13}
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (1 always runs)")
     args = ap.parse_args()
     phases = {int(x) for x in args.phases.split(",")}
@@ -2936,10 +3567,38 @@ def main():
         t0 = time.time()
         phase_cli()
         log(f"[11] phase 11 {time.time() - t0:.2f}s")
+    p12 = p13 = None
+    if 12 in phases:
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        p12 = phase_train_cli()
+        log(f"[12] phase 12 {time.time() - t0:.2f}s")
+    if 13 in phases:
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        p13 = phase_moe_prefix()
+        log(f"[13] phase 13 {time.time() - t0:.2f}s")
     if g3 is not None:
         rows.append(ring_row(g3, rg, errs["decode_attention"]))
         rows.append(slot_prefill_row(g3["cfg"], g3["slot"]["flash"],
                                      errs["flash_attention"]))
+    if ALL_PHASES <= phases:
+        # the launches of phases 12 and 13, each counted from zero just
+        # before its path and read just after, added to their kernels' rows
+        a, b, c = p13["a"], p13["b"], p13["c"]
+        for name, phase, n in (
+                ("flash_attention[train]", "12", p12["fwd"]),
+                ("flash_attention_bwd", "12", p12["bwd"]),
+                ("paged_decode[bf16]", "13a", a["paged_decode"]),
+                ("paged_prefill[bf16]", "13a", a["paged_prefill"]),
+                ("flash_attention[prefill_batch]", "13a", a["flash_engine"]),
+                ("flash_attention[greedy]", "13a", a["flash_greedy"]),
+                ("flash_attention[greedy]", "13b", b["flash_attention"]),
+                ("flash_attention[greedy]", "13c", c["flash_attention"]),
+                ("decode_attention", "13a", a["decode_attention"]),
+                ("decode_attention", "13b", b["decode_attention"]),
+                ("decode_attention", "13c", c["decode_attention"])):
+            add_launches(rows, name, phase, n)
     for r in rows:
         lib = ("" if r["library_ms"] is None else
                f", library {r['library_ms']:.4f} ms")

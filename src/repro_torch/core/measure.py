@@ -38,6 +38,7 @@ import dataclasses
 import json
 import os
 import tempfile
+import time
 from typing import Callable, Dict, Optional
 
 from repro_torch.configs.base import (DECODE, MLP_DENSE, MLP_MOE, PREFILL,
@@ -229,10 +230,12 @@ class CudaMeasurer(MemoryMeasurer):
     Measures on one card (a mesh of one device); the serving knobs of a
     paged plan (kv_block_size > 0) are not measured — the predictor plans
     them. Raises on anything but a CUDA device: there is no fallback to the
-    simulator.
+    simulator. `steps` and `step_seconds` count the steps run and their
+    wall time (placing inputs included), for a CLI's planning report.
     """
 
     backend = "cuda"
+    steps, step_seconds = 0, 0.0
 
     def __init__(self, mesh: Optional[MeshLike] = None,
                  cache: Optional[ProfileCache] = None, device="cuda"):
@@ -285,6 +288,7 @@ class CudaMeasurer(MemoryMeasurer):
             raise NotImplementedError(
                 "CudaMeasurer runs ring-cache decode; paged plans "
                 "(kv_block_size > 0) are sized by the predictor")
+        t0 = time.time()
         dev = self.device
         params = self.params_for(cfg)
         gen = torch.Generator(device=dev).manual_seed(1)
@@ -295,21 +299,29 @@ class CudaMeasurer(MemoryMeasurer):
                                  generator=gen, device=dev,
                                  dtype=torch.int32)
 
+        # the reference's input layout (configs.base.input_specs): a
+        # modality-stub arch takes prefix embeddings [b, n_prefix, d] in
+        # bf16 before seq - n_prefix text tokens
+        n_pre = cfg.n_prefix_embeds
+        prefix = ({"prefix_embeds": torch.randn(
+            (b, n_pre, cfg.d_model), generator=gen, device=dev).to(
+                torch.bfloat16)} if n_pre and shape.kind != DECODE else {})
         if shape.kind == TRAIN:
             tcfg = PF._tcfg_for(plan, settings)
             placed = {"opt": OPT.init_state(tcfg.optimizer, params),
-                      "batch": {"tokens": tokens(b, s),
-                                "targets": tokens(b, s)}}
+                      "batch": {"tokens": tokens(b, s - n_pre),
+                                "targets": tokens(b, s - n_pre), **prefix}}
             train = SCH.make_train_step(cfg, tcfg)
 
             def step():
                 return train(params, placed["opt"], placed["batch"], 0)
         elif shape.kind == PREFILL:
-            placed = {"tokens": tokens(b, s)}
+            placed = {"tokens": tokens(b, s - n_pre), **prefix}
             prefill = SS.make_prefill_step(cfg, settings)
 
             def step():
-                return prefill(params, placed["tokens"], context=s)
+                return prefill(params, placed["tokens"], context=s,
+                               prefix_embeds=placed.get("prefix_embeds"))
         elif shape.kind == DECODE:
             placed = {"cache": M.init_cache(cfg, b, shape.context,
                                             device=dev),
@@ -335,6 +347,8 @@ class CudaMeasurer(MemoryMeasurer):
         output = max(torch.cuda.memory_allocated(dev) - before, 0)
         del out, placed
         transient = max(peak - before - output, 0)
+        self.steps += 1
+        self.step_seconds += time.time() - t0
         return E.profile_from_measured(
             cfg, shape, argument, transient, output,
             argument + peak - before, 1, dp_size_of(self.mesh_shape))

@@ -1,25 +1,36 @@
 """End-to-end training driver of the port, after the reference package's
 launch/train.py.
 
-The memory plan (remat x microbatches x optimizer) comes from the flags
-(default: `MemoryPlan()`); the WSMC online phase that plans it (profiling
-ladder, classification, plan search) waits for the profiler (ROADMAP A3),
-and `--mesh` for the parallel layer (A8). The workload class the capacity
-model needs is fixed here by hand: Expanding.Medium, the class the reference
-package's compile-free simulator assigns h2o-danube-1.8b's training step at
-seq 2048, batch 4; for any other model or shape `main` says that the
-prediction uses that workload's factors. `main` prints the capacity
-model's resident + transient prediction for the plan and, on a CUDA
-device, the measured `torch.cuda.max_memory_allocated()` beside it.
+WSMC is in the loop: unless the flags force every knob, the trainer profiles
+the workload on a small-shape ladder, classifies it, and applies the
+planned memory configuration (remat x microbatches x optimizer) before the
+first real step (the paper's section III-E online phase). The plan is made
+for the card this trainer runs on: `PLAN_HW` (an H100's 80 GB), where the
+reference plans for a TPU v5e.
+
+  --backend simulate  classify with the device-free simulator (default);
+  --backend cuda      classify with one step per ladder point measured on
+                      the card (core.measure.CudaMeasurer); its params are
+                      released before the trainer makes its own, and the
+                      planning steps and their time are printed;
+  --mesh ''           the (data, model) host mesh of one card;
+  --mesh auto         the mesh is a planned output (search.execplan
+                      .auto_plan over one device).
+
+Meshes of more devices (a forced `--mesh data:2,...`) need the parallel
+layer, which is not ported (ROADMAP queue A item 5): they raise. `main`
+prints the capacity model's resident + transient prediction for the plan
+under the classified workload and, on a CUDA device, the measured
+`torch.cuda.max_memory_allocated()` beside it.
 
 Examples:
   # tiny CPU run (reduced config), 50 steps:
   PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
       --reduced --seq 128 --batch 8 --steps 50 --device cpu
 
-  # full width on one GPU, a few steps:
+  # full width on one GPU, a few steps, classified on the card:
   PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
-      --seq 2048 --batch 4 --steps 4 --lr 1e-4
+      --seq 2048 --batch 4 --steps 4 --lr 1e-4 --backend cuda
 """
 from __future__ import annotations
 
@@ -29,10 +40,12 @@ import time
 
 import torch
 
+from repro_torch import hw as HW
 from repro_torch.configs import get_config
 from repro_torch.configs.base import TRAIN, ShapeConfig, depth_variant
-from repro_torch.core import classifier as CL
+from repro_torch.core import measure as MM
 from repro_torch.core import predictor as PR
+from repro_torch.core import profiler as PF
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.models import init_params
 from repro_torch.models.model import require_device
@@ -40,18 +53,14 @@ from repro_torch.optim import optimizers as opt
 from repro_torch.runtime import fault as F
 from repro_torch.runtime import schedule as SCH
 from repro_torch.runtime.train_step import TrainStepConfig
+from repro_torch.search import execplan as XP
+from repro_torch.search import space as SP
+from repro_torch.search import strategies as ST
 from repro_torch.tree import tree_leaves
 
-# Fixed by hand until the profiler is ported (ROADMAP A3): the reference
-# simulator's classification of h2o-danube-1.8b's training step (alpha
-# 29.79, inc 1.11: Expanding.Medium, Table III factor 3).
-TRAIN_WORKLOAD = CL.Classification(
-    category=CL.Category.EXPANDING_MEDIUM, alpha=29.794921875,
-    inc=1.1100134710372702, slope=772.5, intercept=-100352000.0)
-# (arch, seq, batch) the fixed class was measured for; any other run's
-# prediction uses this workload's factors, and `main` says so
-TRAIN_WORKLOAD_OF = ("h2o-danube-1.8b", 2048, 4)
-MESH = {"data": 1, "model": 1}
+# the device the plan is made for
+PLAN_HW = HW.H100
+N_DEVICES = 1
 
 
 def reduced_100m(cfg):
@@ -67,22 +76,25 @@ def reduced_100m(cfg):
 def fit_microbatches(plan, batch: int):
     """Clamp the plan's microbatch count to one that divides the global
     batch (the scan schedule's only constraint without a pipe axis),
-    preferring the nearest to the planned value."""
+    preferring the nearest to the planned value. The note is the reference
+    trainer's, whose pipe axis is 1 on a mesh of one device."""
     m0 = max(plan.microbatches, 1)
     if batch % m0 == 0:
         return plan
     fits = [m for m in range(1, batch + 1) if batch % m == 0]
     micro = min(fits, key=lambda m: (abs(m - m0), m))
     print(f"note: adjusted microbatches {m0} -> {micro} to fit "
-          f"batch={batch}")
+          f"pipe=1, batch={batch}")
     return dataclasses.replace(plan, microbatches=micro)
 
 
-def predicted_bytes(cfg, shape: ShapeConfig, plan: PR.MemoryPlan):
+def predicted_bytes(cfg, shape: ShapeConfig, plan: PR.MemoryPlan, cls,
+                    mesh_shape):
     """(resident, transient) bytes the capacity model predicts for one
-    device running `plan`."""
-    return (PR.resident_bytes(cfg, shape, plan, MESH),
-            PR.transient_bytes(cfg, shape, plan, TRAIN_WORKLOAD, MESH))
+    device of `mesh_shape` running `plan`, the transient under the
+    workload class `cls`."""
+    return (PR.resident_bytes(cfg, shape, plan, mesh_shape),
+            PR.transient_bytes(cfg, shape, plan, cls, mesh_shape))
 
 
 def main(argv=None):
@@ -96,6 +108,22 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--mesh", default="",
+                    help="'' = the (data, model) host mesh of one card; "
+                         "'auto' = plan the mesh (one device); a forced "
+                         "mesh needs the parallel layer and raises")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="the host mesh's model axis, as the reference's "
+                         "flag; on one card it has no effect (the axis is "
+                         "clamped to 1)")
+    ap.add_argument("--strategy", default="fastest",
+                    choices=list(ST.CLI_STRATEGIES),
+                    help="plan-search strategy for the WSMC online phase")
+    ap.add_argument("--backend", default="simulate",
+                    choices=["simulate", "cuda"],
+                    help="memory-measurement backend for the profiling "
+                         "ladder: simulate = nothing run on the card; cuda "
+                         "= one step per point on the card")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-interval", type=int, default=100)
     ap.add_argument("--remat", default="")
@@ -107,6 +135,11 @@ def main(argv=None):
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
     dev = require_device(args.device)
+    if args.mesh not in ("", "auto"):
+        raise NotImplementedError(
+            f"--mesh {args.mesh!r}: a forced mesh needs the parallel layer, "
+            "which is not ported (ROADMAP queue A item 5); '' and 'auto' "
+            "plan for one device")
 
     cfg = get_config(args.arch)
     if args.reduced_100m:
@@ -117,14 +150,82 @@ def main(argv=None):
         cfg = depth_variant(cfg, args.depth)
     shape = ShapeConfig("train_cli", TRAIN, args.seq, args.batch)
 
-    plan = PR.MemoryPlan()
-    if args.remat:
-        plan = dataclasses.replace(plan, remat=args.remat)
-    if args.microbatches:
-        plan = dataclasses.replace(plan, microbatches=args.microbatches)
-    if args.optimizer:
-        plan = dataclasses.replace(plan, optimizer=args.optimizer)
-    plan = fit_microbatches(plan, args.batch)
+    forced_plan = None
+    if args.remat and args.microbatches and args.optimizer:
+        forced_plan = PR.MemoryPlan(remat=args.remat,
+                                    microbatches=args.microbatches,
+                                    optimizer=args.optimizer)
+
+    def apply_overrides(plan):
+        if args.remat:
+            plan = dataclasses.replace(plan, remat=args.remat)
+        if args.microbatches:
+            plan = dataclasses.replace(plan, microbatches=args.microbatches)
+        if args.optimizer:
+            plan = dataclasses.replace(plan, optimizer=args.optimizer)
+        return plan
+
+    if args.mesh and args.model_parallel != 1:
+        print("note: --model-parallel only shapes the legacy host mesh; "
+              "with --mesh the model axis comes from the plan/spec")
+
+    # ---- WSMC online phase: plan (and possibly the mesh) ----------------
+    base_seq = min(64, args.seq)
+    cuda_measurer = None
+    if args.mesh == "auto":
+        if args.backend == "cuda":
+            cuda_measurer = MM.CudaMeasurer({"data": N_DEVICES})
+        cls, eplan = XP.auto_plan(cfg, shape, n_devices=N_DEVICES,
+                                  strategy=args.strategy, base_seq=base_seq,
+                                  measurer=cuda_measurer, hw=PLAN_HW)
+        plan = fit_microbatches(apply_overrides(eplan.plan), args.batch)
+        if plan != eplan.plan:
+            eplan = dataclasses.replace(
+                eplan, plan=plan,
+                schedule=SCH.schedule_kind(TRAIN, plan.microbatches,
+                                           eplan.pipe))
+        print(f"WSMC[auto]: {cls.category.value} (alpha={cls.alpha:.2f}, "
+              f"inc={cls.inc:.2f}) -> {eplan.describe()}")
+        eplan.build()
+    else:
+        mesh_shape = XP.host_execution(cfg, shape, PR.MemoryPlan(),
+                                       N_DEVICES,
+                                       args.model_parallel).mesh_shape
+        if args.backend == "cuda":
+            measurer = cuda_measurer = MM.CudaMeasurer(mesh_shape)
+        else:
+            measurer = MM.SimulatedMeasurer(mesh_shape)
+        # a forced plan is used as it stands; the class still sizes the
+        # prediction printed below
+        cls = PF.classify_workload(cfg, shape, mesh_shape, n_points=2,
+                                   base_seq=base_seq, measurer=measurer)
+        if forced_plan is not None:
+            # the CLI has no kv flag: resolve the cache layout against the
+            # mesh's model axis
+            plan = dataclasses.replace(
+                forced_plan,
+                kv_shard=SP.kv_auto(cfg, int(mesh_shape.get("model", 1))))
+            policy = "forced"
+            print(f"plan (forced): {plan}")
+        else:
+            res = ST.plan_for(cfg, shape, cls, mesh_shape,
+                              strategy=args.strategy, measurer=measurer,
+                              hw=PLAN_HW)
+            plan = apply_overrides(res.plan)
+            policy = res.policy
+            print(f"WSMC[{args.strategy}/{args.backend}]: "
+                  f"{cls.category.value} (alpha={cls.alpha:.2f}, "
+                  f"inc={cls.inc:.2f}) -> plan {plan} "
+                  f"{res.describe_outcome()}")
+        plan = fit_microbatches(plan, args.batch)
+        eplan = XP.for_mesh(cfg, shape, plan, mesh_shape, policy=policy)
+        print(f"execution: {eplan.describe()}")
+    if cuda_measurer is not None:
+        print(f"planning: {cuda_measurer.steps} steps measured on the card "
+              f"in {cuda_measurer.step_seconds:.2f}s")
+        cuda_measurer.release()
+
+    plan = eplan.plan
     tcfg = TrainStepConfig(
         remat=plan.remat, microbatches=plan.microbatches,
         optimizer=opt.OptimizerConfig(kind=plan.optimizer, lr=args.lr),
@@ -134,20 +235,14 @@ def main(argv=None):
     params = init_params(gen, cfg, device=dev)
     opt_state = opt.init_state(tcfg.optimizer, params)
     n_params = sum(x.numel() for x in tree_leaves(params))
-    step_fn = SCH.make_train_step(cfg, tcfg)
+    step_fn = SCH.make_train_step(cfg, tcfg, schedule=eplan.schedule)
     print(f"arch={cfg.name} params={n_params:,} device={dev} "
-          f"schedule={step_fn.schedule} plan={plan}")
-    res, tra = predicted_bytes(cfg, shape, plan)
-    arch0, seq0, batch0 = TRAIN_WORKLOAD_OF
+          f"mesh={eplan.mesh_shape} schedule={eplan.schedule}")
+    res, tra = predicted_bytes(cfg, shape, plan, cls, eplan.mesh_shape)
     print(f"WSMC: predicted resident {res / 1e9:.3f} GB + transient "
-          f"{tra / 1e9:.3f} GB = {(res + tra) / 1e9:.3f} GB "
-          f"(class {TRAIN_WORKLOAD.category.value}, fixed: classified for "
-          f"{arch0} at seq {seq0}, batch {batch0})")
-    if (cfg.name, args.seq, args.batch) != TRAIN_WORKLOAD_OF:
-        print(f"WSMC: note: this run is {cfg.name} at seq {args.seq}, batch "
-              f"{args.batch}; its transient term uses the fixed class's "
-              "factors, not its own (classification needs the profiler, "
-              "ROADMAP A3)")
+          f"{tra / 1e9:.3f} GB = {(res + tra) / 1e9:.3f} GB (class "
+          f"{cls.category.value}, alpha {cls.alpha:.2f}, inc {cls.inc:.2f}, "
+          f"{args.backend} ladder)")
 
     data_pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                          seq_len=args.seq,

@@ -28,10 +28,11 @@ def _dtype(cfg) -> torch.dtype:
 
 
 def _normal(gen, shape, dtype, device) -> torch.Tensor:
-    """N(0, INIT_STD) drawn in f32 from `gen`, stored in `dtype`. A leading
-    stacking axis (len(shape) == 3) is filled slice by slice so that the f32
-    draw of a full-width stacked leaf never exists whole."""
-    if len(shape) == 3:
+    """N(0, INIT_STD) drawn in f32 from `gen`, stored in `dtype`. A leaf of
+    three or more axes (a stacking axis, an expert axis) is filled slice by
+    slice along its leading axis, so that the f32 draw of a full-width
+    stacked leaf never exists whole."""
+    if len(shape) >= 3:
         out = torch.empty(shape, dtype=dtype, device=device)
         for r in range(shape[0]):
             out[r] = _normal(gen, shape[1:], dtype, device)

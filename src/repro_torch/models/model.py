@@ -7,13 +7,14 @@ that axis, this package runs a Python loop over the layers and hands each
 layer a view `leaf[r]` of the stacked tensors; caches are updated in place
 through those views.
 
-Ported: attention mixers with a dense MLP, xLSTM's mLSTM and sLSTM mixers
-and Griffin's RG-LRU; the sequence forward without a cache
-(differentiable: the training path, with an optional remat wrapper around
-each unit repeat), the prefill that builds ring caches and recurrent states
-(`build_cache`) or writes a paged pool (and its per-lane rings and
-states), and decode and chunk-append forwards against a cache. MoE raises
-NotImplementedError naming what lifts it.
+Every block of the reference is ported: attention, xLSTM's mLSTM and
+sLSTM and Griffin's RG-LRU mixers, each with a dense or a MoE channel mixer
+(models/moe.py); the sequence forward without a cache (differentiable: the
+training path, with an optional remat wrapper around each unit repeat),
+with prefix embeddings before the tokens for the modality-stub archs; the
+prefill that builds ring caches and recurrent states (`build_cache`) or
+writes a paged pool (and its per-lane rings and states), and decode and
+chunk-append forwards against a cache.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from repro_torch.configs.base import (ATTN, MLP_DENSE, MLP_MOE, MLP_NONE,
                                       MLSTM, RGLRU, SLSTM, BlockSpec,
                                       ModelConfig)
 from repro_torch.kernels.ops import MLSTM_BACKENDS
-from repro_torch.models import attention, layers, recurrent
+from repro_torch.models import attention, layers, moe, recurrent
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +41,9 @@ class ModelSettings:
     # plain version, on either device), and its chunk length
     mlstm_backend: str = "kernel"
     mlstm_chunk: int = 128
+    # MoE routing group size (tokens along the sequence; a decode step
+    # routes its whole batch as one group)
+    moe_group: int = 2048
 
     def __post_init__(self):
         if self.mlstm_backend not in MLSTM_BACKENDS:
@@ -91,9 +95,7 @@ def mlp_apply(params, cfg: ModelConfig, x):
 def _check_block(blk: BlockSpec):
     if blk.mixer not in (ATTN, MLSTM, SLSTM, RGLRU):
         raise ValueError(blk.mixer)
-    if blk.mlp == MLP_MOE:
-        raise NotImplementedError("MoE MLP: needs the MoE slice")
-    if blk.mlp not in (MLP_DENSE, MLP_NONE):
+    if blk.mlp not in (MLP_DENSE, MLP_MOE, MLP_NONE):
         raise ValueError(blk.mlp)
 
 
@@ -108,6 +110,8 @@ def block_init(gen, cfg: ModelConfig, blk: BlockSpec, device,
                                                         repeats)}
     if blk.mlp == MLP_DENSE:
         p["mlp"] = mlp_init(gen, cfg, device, repeats)
+    elif blk.mlp == MLP_MOE:
+        p["mlp"] = moe.moe_init(gen, cfg, device, repeats)
     return p
 
 
@@ -172,7 +176,9 @@ def block_apply(params, cfg: ModelConfig, blk: BlockSpec, x, positions,
                 block_tables=None):
     """Returns (x', cache, aux). A cache passed in is updated in place; with
     settings.build_cache and no cache, the ring the prompt fills (attention)
-    or the state it leaves (recurrent)."""
+    or the state it leaves (recurrent). A MoE block's aux is the MoE's
+    {"lb_loss", "z_loss"} alone: as in the reference, it replaces the
+    attention's (so a MoE arch reports no attention mass)."""
     _check_block(blk)
     building = settings.build_cache and not decode
     aux: Dict[str, Any] = {}
@@ -189,6 +195,10 @@ def block_apply(params, cfg: ModelConfig, blk: BlockSpec, x, positions,
     x = x + delta
     if blk.mlp == MLP_DENSE:
         x = x + mlp_apply(params["mlp"], cfg, x)
+    elif blk.mlp == MLP_MOE:
+        delta, aux = moe.moe_apply(params["mlp"], cfg, x,
+                                   group_size=settings.moe_group)
+        x = x + delta
     return x, new_cache, aux
 
 
@@ -249,7 +259,7 @@ def _merge_aux(acc: Dict[str, Any], aux: Dict[str, Any]):
 
 
 def apply(params, cfg: ModelConfig, tokens, *, positions=None,
-          cache=None, decode: bool = False,
+          prefix_embeds=None, cache=None, decode: bool = False,
           settings: ModelSettings = ModelSettings(), context: int = 0,
           logits_last_only: bool = False, block_tables=None,
           head_rows=None, unit_wrapper: Optional[Callable] = None):
@@ -257,7 +267,9 @@ def apply(params, cfg: ModelConfig, tokens, *, positions=None,
 
     tokens [b, s] (s=1 for decode); positions [b] for decode, [b, s]
     absolute positions for a mid-prompt chunk (-1 marks padding; else the
-    implied arange); block_tables [b, max_blocks] maps each sequence's
+    implied arange); prefix_embeds [b, p, d] for the modality-stub archs,
+    placed before the token embeddings (not at decode; not together with
+    explicit positions); block_tables [b, max_blocks] maps each sequence's
     logical KV blocks to physical blocks of a paged pool cache (-1 =
     unassigned).
     Returns (logits f32, cache, aux). A cache passed in has its tensors
@@ -266,8 +278,9 @@ def apply(params, cfg: ModelConfig, tokens, *, positions=None,
     the returned cache is the ring tree the prompt fills; with a paged pool
     it is that pool, the prompt's K/V written layer by layer. Without
     either, the cache returned is None. `aux` holds "lb_loss" and "z_loss"
-    (zeros: no MoE block is ported) and, on paged decode with
-    settings.attn.track_mass, "attn_mass".
+    (f32 sums over the MoE layers; zeros without one) and, on paged decode
+    with settings.attn.track_mass, "attn_mass" (zeros for a MoE arch, as
+    the reference's).
 
     Grad mode follows the caller's, so a loss over the cache-free sequence
     path's logits can be differentiated (the training path). The serving
@@ -288,11 +301,14 @@ def apply(params, cfg: ModelConfig, tokens, *, positions=None,
     """
     b = tokens.shape[0]
     x = layers.embed_lookup(params["embed"], cfg, tokens)
+    if prefix_embeds is not None and not decode:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     s = x.shape[1]
     if decode:
         assert positions is not None
         pos = positions[:, None]                      # [b, 1]
     elif positions is not None:
+        assert prefix_embeds is None
         pos = positions
     else:
         pos = torch.arange(s, dtype=torch.int32,
@@ -301,6 +317,9 @@ def apply(params, cfg: ModelConfig, tokens, *, positions=None,
 
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux_acc: Dict[str, Any] = {"lb_loss": zero, "z_loss": zero}
+    if decode and block_tables is not None and settings.attn.track_mass:
+        aux_acc["attn_mass"] = torch.zeros(
+            (b, block_tables.shape[1]), dtype=torch.float32, device=x.device)
     have_cache = cache is not None
     building = settings.build_cache and not decode and not have_cache
     if building:

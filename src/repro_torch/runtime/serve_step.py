@@ -57,15 +57,19 @@ from repro_torch.models import model as M
 
 def make_prefill_step(cfg: ModelConfig,
                       settings: Optional[M.ModelSettings] = None):
-    """Prefill tokens [b, p] from position 0: (last-token logits [b, V],
-    the ring cache tree the prompt fills)."""
+    """Prefill tokens [b, p] from position 0, after `prefix_embeds` [b, n,
+    d] where given (the modality-stub archs: the prompt then spans n + p
+    positions): (last-token logits [b, V], the ring cache tree the prompt
+    fills)."""
     settings = settings or M.ModelSettings()
     psettings = dataclasses.replace(settings, build_cache=True)
 
     @torch.no_grad()
-    def prefill_step(params, tokens, context: int):
-        logits, cache, _ = M.apply(params, cfg, tokens, settings=psettings,
-                                   context=context, logits_last_only=True)
+    def prefill_step(params, tokens, context: int, prefix_embeds=None):
+        logits, cache, _ = M.apply(params, cfg, tokens,
+                                   prefix_embeds=prefix_embeds,
+                                   settings=psettings, context=context,
+                                   logits_last_only=True)
         return logits[:, -1], cache
 
     return prefill_step

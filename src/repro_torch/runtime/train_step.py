@@ -83,15 +83,17 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainStepConfig):
     """loss_fn(params, batch) -> (total loss, {"loss", "lb_loss", "z_loss"}),
     differentiable with respect to the leaves of `params` that require a
     gradient. batch: {"tokens", "targets"} int tensors [b, s] on the params'
-    device."""
-    if cfg.n_prefix_embeds:
-        raise NotImplementedError(
-            "prefix-embed configs: the port's model takes no prefix embeds")
+    device and, for the modality-stub archs, "prefix_embeds" [b, p, d]; the
+    logits of the first cfg.n_prefix_embeds positions are dropped. The
+    total adds lb_coef x lb_loss + z_coef x z_loss (the MoE aux losses)."""
     wrapper = remat_wrapper(tcfg.remat)
 
     def loss_fn(params, batch):
         logits, _, aux = M.apply(params, cfg, batch["tokens"],
+                                 prefix_embeds=batch.get("prefix_embeds"),
                                  settings=tcfg.settings, unit_wrapper=wrapper)
+        if cfg.n_prefix_embeds:
+            logits = logits[:, cfg.n_prefix_embeds:]
         loss = cross_entropy(logits, batch["targets"])
         total = (loss + tcfg.lb_coef * aux["lb_loss"]
                  + tcfg.z_coef * aux["z_loss"])

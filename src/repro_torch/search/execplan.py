@@ -17,9 +17,9 @@ the parallel layer (ROADMAP queue A item 5). `plan_execution` is the
 one-call `--mesh auto` entry: search a runnable mesh_space, promote the
 winner.
 
-`plan_serving` keeps the reference package's default `hw=HW.TPU_V5E`, so
-that a call without `hw` plans exactly what the reference plans; the
-port's serve CLI passes `hw=HW.H100`.
+`plan_serving` and `auto_plan` keep the reference package's default
+`hw=HW.TPU_V5E`, so that a call without `hw` plans exactly what the
+reference plans; the port's serve and train CLIs pass `hw=HW.H100`.
 """
 from __future__ import annotations
 
@@ -164,7 +164,8 @@ def auto_plan(cfg: ModelConfig, shape: ShapeConfig, *, n_devices: int,
               strategy: str = "fastest", base_seq: int = 64,
               n_points: int = 2, factors: Optional[dict] = None,
               cache: Optional[MM.ProfileCache] = None,
-              measurer: Optional[MM.MemoryMeasurer] = None):
+              measurer: Optional[MM.MemoryMeasurer] = None,
+              hw: HW.HardwareSpec = HW.TPU_V5E):
     """The `--mesh auto` preamble shared by the train and serve drivers:
     classify the workload and plan a runnable execution. Returns
     (Classification, ExecutionPlan).
@@ -174,7 +175,9 @@ def auto_plan(cfg: ModelConfig, shape: ShapeConfig, *, n_devices: int,
     `--backend` choice through here, so `--mesh auto --backend cuda`
     classifies and verifies with steps on the card instead of silently
     falling back to the simulator. Default (None) stays the device-free
-    simulator over the host's data axis."""
+    simulator over the host's data axis. `hw` is the device the plan is
+    made for (the reference's default, a TPU v5e; the port's CLIs pass
+    HW.H100)."""
     from repro_torch.core import profiler as PF
     if measurer is None:
         measurer = MM.SimulatedMeasurer({"data": n_devices}, cache=cache)
@@ -182,7 +185,7 @@ def auto_plan(cfg: ModelConfig, shape: ShapeConfig, *, n_devices: int,
                                base_seq=base_seq, measurer=measurer)
     eplan = plan_execution(cfg, shape, cls, n_devices=n_devices,
                            strategy=strategy, measurer=measurer, cache=cache,
-                           factors=factors)
+                           factors=factors, hw=hw)
     return cls, eplan
 
 

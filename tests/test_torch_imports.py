@@ -44,7 +44,8 @@ def test_every_module_imports_without_jax_or_reference_package():
                  "repro_torch.runtime.schedule", "repro_torch.runtime.fault",
                  "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
                  "repro_torch.launch.train", "repro_torch.tree",
-                 "repro_torch.kernels.decode_attention"):
+                 "repro_torch.kernels.decode_attention",
+                 "repro_torch.models.moe"):
         assert want in names
     code = (
         "import importlib, sys\n"

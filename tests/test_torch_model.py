@@ -149,10 +149,11 @@ def test_init_params_layout_and_device_rule():
 
 
 def test_unported_paths_raise_by_name():
-    """What is not ported raises by name (MoE); the cache-free forward
-    (which raised before whole-prompt prefill was ported) runs and equals
-    the reference's; RG-LRU parameters and gemma3-12b's paged pool with
-    per-lane rings (which raised before the ring/slot slice) are built."""
+    """Paths that once raised by name now run: the cache-free forward
+    (which raised before whole-prompt prefill was ported) equals the
+    reference's; RG-LRU parameters and gemma3-12b's paged pool with
+    per-lane rings (which raised before the ring/slot slice) and a reduced
+    mixtral's MoE leaves (which raised before the MoE slice) are built."""
     from repro_torch.configs import get_config
     cj, pj, ct, pt = model_pair()
     toks = np.asarray([[5, 9, 2, 7]], np.int32)
@@ -166,8 +167,16 @@ def test_unported_paths_raise_by_name():
                      device="cpu")
     assert rg["units"][0]["mixer"]["a_param"].dtype == torch.float32
     assert rg["units"][0]["mixer"]["w_x"].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="MoE"):
-        init_params(gen, get_config("mixtral-8x7b").reduced(), device="cpu")
+    # MoE (which raised before the MoE slice) builds: the router in f32,
+    # the experts stacked over repeats
+    mx = get_config("mixtral-8x7b").reduced()
+    moe = init_params(gen, mx, device="cpu")["units"][0]["mlp"]
+    assert {k: tuple(v.shape) for k, v in moe.items()} == {
+        "norm": (1, mx.d_model), "router": (1, mx.d_model, mx.n_experts),
+        "wi": (1, mx.n_experts, mx.d_model, 2 * mx.d_ff),
+        "wo": (1, mx.n_experts, mx.d_ff, mx.d_model)}
+    assert moe["router"].dtype == torch.float32
+    assert moe["wi"].dtype == torch.bfloat16
     pool = SS.init_paged_pool(get_config("gemma3-12b").reduced(), 2, 6, 4,
                               16, device="cpu")
     assert [("kb" in P) for P in pool["units"]] == [False] * 5 + [True]
