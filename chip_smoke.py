@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 1,11   # build + the serving CLI only
     python3 chip_smoke.py --phases 1,12   # build + the training CLI only
     python3 chip_smoke.py --phases 1,13   # build + MoE and prefix embeds only
+    python3 chip_smoke.py --phases 1,14   # build + the parallel layer only
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. device: the card's name and power limit, its properties beside the
@@ -153,6 +154,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      positions 1224 + t. (b) and (c) are held against the same steps
      through the plain attention and ring decode, the plain run taking
      the kernel run's MoE routes (REL_BOUND).
+ 14. the parallel layer on the card: the training CLI in subprocesses,
+     h2o-danube-1.8b at full width and depth, [4, 2048], 3 steps, seed 0,
+     --remat none --optimizer adamw_f32, ranks sharing the card over gloo
+     (every collective staged through the host): (0) one rank at 4, 1 and
+     2 microbatches, the losses and gradient norms to match; (a) --mesh pipe:2, 4
+     microbatches (the 1F1B pipeline, 2 ranks); (b) --mesh data:2, 1
+     microbatch (FSDP, 2 ranks), saving a checkpoint at its last step;
+     then (b)'s checkpoint restored onto data:2,pipe:2 (4 ranks), each
+     rank's leaves bit for bit the slices of a one-device restore; (c)
+     --mesh data:2,pipe:2, 2 microbatches (4 ranks); (d) compressed_psum
+     over a data:2 world on CUDA tensors the size of the largest leaf,
+     within 1.5 x scale. Each run is judged as it ends. Fails on a rank's
+     non-zero exit, step 1's loss more than 1e-4 or its gradient norm
+     more than 1e-3 relative from (0)'s at the same microbatches (later
+     steps' losses 1e-3), per-rank parameter elements other than
+     the spec tree's (pipe:2: predictor.sharded_param_count exactly), or
+     flash launches per rank other than stage layers x microbatches x
+     steps (forward twice under the pipeline's recompute); prints each
+     rank's max_memory_allocated against the predictor's figure, the step
+     wall and the bytes staged a step.
   then: each kernel timed at the largest shape its path launched it at
   (the paged kernels also at every shape phase 3 launched them at, with
   the launches each shape had and the sum of launches x time)
@@ -162,8 +183,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   256]), beside its plain version, its bound and (flash attention, forward
   and backward; ring decode) the one PyTorch call that computes the same
   function; the flash rows also with their TFLOP/s and share of 989
-  TFLOP/s; one JSON line `kernels`, where the launches of phases 12 and
-  13 are added to the rows of their kernels (`launches_by_phase`).
+  TFLOP/s; one JSON line `kernels`, where the launches of phases 12, 13
+  and 14 are added to the rows of their kernels (`launches_by_phase`).
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -172,12 +193,16 @@ Without a CUDA device the script exits non-zero and prints no result.
 import argparse
 import contextlib
 import dataclasses
+import hashlib
+from concurrent.futures import ThreadPoolExecutor
 import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -210,7 +235,12 @@ from repro_torch.models import ModelSettings, init_params  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import recurrent as R  # noqa: E402
+from repro_torch.checkpoint import ckpt as CK  # noqa: E402
+from repro_torch.launch import mesh as LM  # noqa: E402
 from repro_torch.optim import optimizers as OPT  # noqa: E402
+from repro_torch.optim.compress import compressed_psum  # noqa: E402
+from repro_torch.parallel import comm as COMM  # noqa: E402
+from repro_torch.parallel import sharding as SHD  # noqa: E402
 from repro_torch.runtime import fault as FT  # noqa: E402
 from repro_torch.runtime import serve_step as SS  # noqa: E402
 from repro_torch.runtime import train_step as TS  # noqa: E402
@@ -220,7 +250,7 @@ from repro_torch.serving import (BlockAllocator, Engine, leak_check,  # noqa: E4
 from repro_torch.serving import quality as Q  # noqa: E402
 from repro_torch.serving.executor import (  # noqa: E402
     PagedTorchExecutor, TorchExecutor)
-from repro_torch.tree import tree_leaves, tree_paths  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map, tree_paths  # noqa: E402
 
 DEV = torch.device("cuda:0")
 SEED = 0
@@ -3501,6 +3531,306 @@ def phase_moe_prefix():
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the parallel layer on the card
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 3
+PAR_SEED = 0
+PAR_CLI = ["--arch", TR_ARCH, "--seq", str(TR_SEQ), "--batch", str(TR_BATCH),
+           "--steps", str(PAR_STEPS), "--lr", str(TR_LR), "--log-every",
+           "1", "--seed", str(PAR_SEED), "--remat", "none", "--optimizer",
+           "adamw_f32", "--device", "cuda", "--dist-backend", "gloo"]
+# (tag, --mesh, microbatches, the one-rank run whose losses it matches)
+PAR_RUNS = (("0 m4", "", 4, None), ("0 m1", "", 1, None),
+            ("0 m2", "", 2, None),
+            ("a", "pipe:2", 4, "0 m4"), ("b", "data:2", 1, "0 m1"),
+            ("c", "data:2,pipe:2", 2, "0 m2"))
+# step 1 is taken before any update: its loss and gradient norm are the
+# same in every layout up to the order of its sums (its loss at random
+# weights is about ln V whatever the layout, so the norm is the sharper
+# test of a gradient); later steps drift a little further. PR 22's sound
+# runs spread 0 (step 1) and up to 6.8e-5 (later) on the loss
+PAR_FIRST_BOUND = 1e-4
+PAR_GNORM_BOUND = 1e-3
+PAR_LATER_BOUND = 1e-3
+PAR_TIMEOUT = 600
+
+
+def par_mesh(spec):
+    return LT.parse_mesh(spec) if spec else {}
+
+
+def par_layout(cfg, mesh):
+    """(the spec tree of the trainer's {"params", "opt"} checkpoint on
+    `mesh`, a target of this rank's leaf shapes on the meta device)."""
+    abstract = init_params(None, cfg, device="meta")
+    strategy = SHD.Strategy(pipeline=mesh.axis_size("pipe") > 1)
+    specs = SHD.param_specs(cfg, abstract, strategy, mesh)
+    ocfg = OPT.OptimizerConfig(kind="adamw_f32")
+    local = tree_map(lambda t, s: torch.empty(
+        SHD.local_shape(t.shape, s, mesh), dtype=t.dtype, device="meta"),
+        abstract, specs)
+    return ({"params": specs, "opt": OPT.state_specs(ocfg, specs)},
+            {"params": local, "opt": OPT.init_state(ocfg, local)})
+
+
+def rank_elements(cfg, shape):
+    """Each rank's parameter elements under the spec tree on `shape`."""
+    axes = tuple(a for a, _ in LM._ordered(shape))
+    out = []
+    abstract = init_params(None, cfg, device="meta")
+    for r in range(int(np.prod([shape[a] for a in axes]))):
+        c, rest = {}, r
+        for a in reversed(axes):
+            c[a], rest = rest % shape[a], rest // shape[a]
+        mesh = LM.Mesh(axis_names=axes, shape=dict(shape), coords=c)
+        specs = SHD.param_specs(cfg, abstract, SHD.Strategy(
+            pipeline=shape.get("pipe", 1) > 1), mesh)
+        out.append(sum(int(np.prod(SHD.local_shape(t.shape, s, mesh)))
+                       for t, s in zip(tree_leaves(abstract),
+                                       tree_leaves(specs))))
+    return out
+
+
+def run_par(tag, mesh, micro, extra=()):
+    """The training CLI in a subprocess (it spawns its own ranks on the
+    card, joined over gloo); its output logged line by line. Fails the run
+    on a non-zero exit (any rank's)."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *PAR_CLI,
+           "--mesh", mesh, "--microbatches", str(micro), *extra]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.time()
+    out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=PAR_TIMEOUT)
+    wall = time.time() - t0
+    for line in out.stdout.splitlines():
+        log(f"[14 {tag}] | {line}")
+    if out.returncode != 0:
+        for line in out.stderr.splitlines()[-60:]:
+            log(f"[14 {tag}] ! {line}")
+        fail(f"phase 14({tag}): the trainer exited with {out.returncode}")
+    text = out.stdout
+    steps = re.findall(r"^step +\d+ loss=([0-9.]+) gnorm=([0-9.]+)", text,
+                       re.M)
+    losses = [float(a) for a, _ in steps]
+    gnorms = [float(b) for _, b in steps]
+    done = re.search(r"^done: (\d+) steps in ([0-9.]+)s", text, re.M)
+    pred = re.search(r"= ([0-9.]+) GB \(class", text)
+    ranks = [dict(rank=int(m[0]), elements=int(m[1].replace(",", "")),
+                  peak=float(m[2]) * 1e9, fwd=int(m[3]), bwd=int(m[4]),
+                  staged=float(m[5]), comm_s=float(m[6]))
+             for m in re.findall(
+                 r"^rank (\d+): param elements ([0-9,]+); "
+                 r"max_memory_allocated ([0-9.]+) GB; flash launches "
+                 r"forward (\d+), backward (\d+); staged through the host "
+                 r"([0-9.]+) B a step; collectives ([0-9.]+) s a step",
+                 text, re.M)]
+    if len(losses) != PAR_STEPS or not all(np.isfinite(losses)) or \
+            done is None or pred is None:
+        fail(f"phase 14({tag}): losses {losses}, or no done / prediction "
+             "line")
+    peak = re.search(r"max_memory_allocated\(\) ([0-9.]+) GB", text)
+    return {"losses": losses, "gnorms": gnorms,
+            "step_s": float(done.group(2)) / PAR_STEPS,
+            "wall": wall, "predicted": float(pred.group(1)) * 1e9,
+            "ranks": ranks, "peak0": float(peak.group(1)) * 1e9}
+
+
+def _digest(t):
+    return hashlib.sha256(t.detach().reshape(-1).contiguous().cpu().view(
+        torch.uint8).numpy()).hexdigest()
+
+
+def restore_digests(device, ckpt_dir):
+    """One rank of data:2,pipe:2: (b)'s checkpoint restored onto this
+    rank's layout, on the card; a digest of each leaf."""
+    cfg = get_config(TR_ARCH)
+    mesh = LM.build_mesh(par_mesh("data:2,pipe:2"))
+    specs, target = par_layout(cfg, mesh)
+    tree, manifest = CK.restore(ckpt_dir, target, device=device, mesh=mesh,
+                                spec_tree=specs)
+    on_card = all(t.device == device for t in tree_leaves(tree))
+    return {"coords": dict(mesh.coords), "step": manifest["step"],
+            "on_card": on_card,
+            "digests": [_digest(t) for t in tree_leaves(tree)]}
+
+
+def psum_check(device, shape):
+    """compressed_psum over the data group of a data:2 world, on CUDA f32
+    tensors of `shape`: its error against the exact mean, the shared
+    scale, its time and the bytes it staged through the host."""
+    mesh = LM.build_mesh({"data": 2})
+    group, r = mesh.groups["data"], mesh.coords["data"]
+    x = torch.randn(shape, generator=torch.Generator(device=device)
+                    .manual_seed(SEED + 140 + r), device=device)
+    scale = float(COMM.all_reduce(x.abs().max(), group, op="max")) / 127.0
+    staged = COMM.staged_bytes
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = compressed_psum(x, group, torch.Generator(device=device)
+                          .manual_seed(SEED + 150 + r))
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    staged = COMM.staged_bytes - staged
+    want = COMM.all_reduce(x, group)
+    del x
+    err = float((got - want / 2).abs().max())
+    return {"err": err, "scale": scale, "ms": dt * 1e3, "staged": staged,
+            "on_card": got.is_cuda}
+
+
+def check_restore(cfg, ckpt_dir):
+    """(b)'s checkpoint onto data:2,pipe:2 (four ranks on the card): each
+    rank's leaves bit for bit the matching slices of a one-device restore
+    (made here, on the host), compared by digest."""
+    t0 = time.time()
+    out = LM.spawn_ranks(restore_digests, 4, "gloo", "cuda",
+                         args=(ckpt_dir,), timeout=PAR_TIMEOUT)
+    abstract = init_params(None, cfg, device="meta")
+    ocfg = OPT.OptimizerConfig(kind="adamw_f32")
+    full, manifest = CK.restore(ckpt_dir, {
+        "params": abstract, "opt": OPT.init_state(ocfg, abstract)},
+        device="cpu")
+    n_leaves = len(tree_leaves(full))
+    for res in out:
+        mesh = LM.Mesh(axis_names=("pipe", "data"),
+                       shape=par_mesh("data:2,pipe:2"), coords=res["coords"])
+        specs, _ = par_layout(cfg, mesh)
+        with ThreadPoolExecutor(8) as pool:    # hashlib releases the GIL
+            want = list(pool.map(
+                lambda ts: _digest(SHD.local_slice(*ts, mesh)),
+                zip(tree_leaves(full), tree_leaves(specs))))
+        bad = sum(a != b for a, b in zip(want, res["digests"]))
+        if (bad or len(res["digests"]) != n_leaves or not res["on_card"]
+                or res["step"] != PAR_STEPS):
+            fail(f"phase 14(c): restore on rank {res['coords']}: {bad} of "
+                 f"{n_leaves} leaves differ, step {res['step']}, on the "
+                 f"card {res['on_card']}")
+    size = sum(t.numel() * t.element_size() for t in tree_leaves(full))
+    del full
+    log(f"[14 c] (b)'s checkpoint (step {manifest['step']}, {n_leaves} "
+        f"leaves, {size} B) restored onto data:2,pipe:2: every rank's "
+        f"leaves equal the one-device restore's slices bit for bit "
+        f"({time.time() - t0:.2f}s)")
+    return {"leaves": n_leaves, "bytes": size, "s": time.time() - t0}
+
+
+def psum_phase(cfg):
+    """(d): compressed_psum at the largest leaf's size, two ranks."""
+    abstract = init_params(None, cfg, device="meta")
+    big = max(tree_leaves(abstract), key=lambda t: t.numel())
+    shape = tuple(big.shape)
+    del abstract
+    out = LM.spawn_ranks(psum_check, 2, "gloo", "cuda", args=(shape,),
+                         timeout=PAR_TIMEOUT)
+    for r, res in enumerate(out):
+        log(f"[14 d] rank {r}: compressed_psum over [{shape}] f32 on the "
+            f"card {res['on_card']}: max abs err {res['err']!r} against "
+            f"the exact mean, scale {res['scale']!r} (bound 1.5 x scale = "
+            f"{1.5 * res['scale']!r}); {res['ms']:.1f} ms, staged through "
+            f"the host {res['staged']} B")
+        if not res["on_card"] or res["err"] > 1.5 * res["scale"]:
+            fail(f"phase 14(d): compressed_psum err {res['err']} > 1.5 x "
+                 f"{res['scale']}")
+    return {"shape": shape, "err": max(r["err"] for r in out),
+            "scale": out[0]["scale"]}
+
+
+def judge_run(cfg, runs, tag, mesh, micro, ref):
+    """Phase 14's gates on one run, as it ends: its losses and gradient
+    norms against the one-rank run `ref`, each rank's parameter elements
+    and flash launches; and its report. Returns the run's flash forward
+    and backward launches over its ranks."""
+    run = runs[tag]
+    shape = par_mesh(mesh)
+    if ref is None:
+        log(f"[14 {tag}] one rank, {micro} microbatches: losses "
+            f"{run['losses']}, gradient norms {run['gnorms']}, "
+            f"{run['step_s']:.2f} s a step, peak "
+            f"{run['peak0'] / 1e9:.3f} GB against "
+            f"{run['predicted'] / 1e9:.3f} GB predicted "
+            f"({run['peak0'] / run['predicted']:.4f})")
+        return 0, 0
+    want, want_g = runs[ref]["losses"], runs[ref]["gnorms"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"], want)]
+    rel_g = abs(run["gnorms"][0] - want_g[0]) / abs(want_g[0])
+    log(f"[14 {tag}] --mesh {mesh} --microbatches {micro}: losses "
+        f"{run['losses']} against ({ref})'s {want} (relative {rel}); "
+        f"step 1's gradient norm {run['gnorms'][0]!r} against "
+        f"{want_g[0]!r} (relative {rel_g!r}); later norms "
+        f"{run['gnorms'][1:]} against {want_g[1:]}; "
+        f"{run['step_s']:.2f} s a step, {run['wall']:.2f} s with start-up")
+    if rel[0] > PAR_FIRST_BOUND or max(rel[1:]) > PAR_LATER_BOUND or \
+            rel_g > PAR_GNORM_BOUND:
+        fail(f"phase 14({tag}): losses {run['losses']} against ({ref})'s "
+             f"{want}: relative {rel} (bounds {PAR_FIRST_BOUND}, then "
+             f"{PAR_LATER_BOUND}); step 1's gradient norm relative {rel_g} "
+             f"(bound {PAR_GNORM_BOUND})")
+    pipe = shape.get("pipe", 1)
+    layers = cfg.n_layers // pipe
+    want_fwd = layers * micro * (2 if pipe > 1 else 1) * PAR_STEPS
+    want_bwd = layers * micro * PAR_STEPS
+    elements = rank_elements(cfg, shape)
+    sharded = PR.sharded_param_count(cfg, shape)
+    if len(run["ranks"]) != len(elements):
+        fail(f"phase 14({tag}): {len(run['ranks'])} rank lines")
+    fwd = bwd = 0
+    for r in run["ranks"]:
+        n = elements[r["rank"]]
+        log(f"[14 {tag}] rank {r['rank']}: {r['elements']:,} parameter "
+            f"elements (spec tree {n:,}; predictor.sharded_param_count "
+            f"{sharded:,.0f}, difference {r['elements'] - sharded:,.0f}"
+            f"); max_memory_allocated {r['peak'] / 1e9:.3f} GB against "
+            f"{run['predicted'] / 1e9:.3f} GB predicted, measured / "
+            f"predicted {r['peak'] / run['predicted']:.4f}; flash "
+            f"launches {r['fwd']} / {r['bwd']} (predicted {want_fwd} / "
+            f"{want_bwd}); staged through the host {r['staged']:.0f} B "
+            f"a step; collectives {r['comm_s']:.2f} s of the step's "
+            f"{run['step_s']:.2f} s")
+        if r["elements"] != n:
+            fail(f"phase 14({tag}): rank {r['rank']} holds "
+                 f"{r['elements']} parameter elements, spec tree {n}")
+        if pipe > 1 and "data" not in shape and n != sharded:
+            fail(f"phase 14({tag}): {n} elements against the "
+                 f"predictor's {sharded}")
+        if (r["fwd"], r["bwd"]) != (want_fwd, want_bwd):
+            fail(f"phase 14({tag}): rank {r['rank']} launched "
+                 f"{r['fwd']} / {r['bwd']} flash kernels, predicted "
+                 f"{want_fwd} / {want_bwd}")
+        fwd, bwd = fwd + r["fwd"], bwd + r["bwd"]
+    return fwd, bwd
+
+
+def phase_parallel():
+    """Phase 14: the trainer on meshes of ranks sharing the card over
+    gloo, against one rank, each run judged as it ends; (b)'s checkpoint
+    restored onto (c)'s layout; compressed_psum at the largest leaf's
+    size."""
+    cfg = get_config(TR_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    runs = {}
+    fwd = bwd = 0
+    try:
+        for tag, mesh, micro, ref in PAR_RUNS:
+            if tag == "c":
+                restore = check_restore(cfg, ckpt_dir)
+                shutil.rmtree(ckpt_dir, ignore_errors=True)
+            extra = (["--ckpt-dir", ckpt_dir, "--ckpt-interval", "0"]
+                     if tag == "b" else [])
+            runs[tag] = run_par(tag, mesh, micro, extra)
+            f, b = judge_run(cfg, runs, tag, mesh, micro, ref)
+            fwd, bwd = fwd + f, bwd + b
+        psum = psum_phase(cfg)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log("[14] these runs are ranks sharing one card over gloo (each "
+        "collective staged through the host), not a multi-GPU measurement")
+    return {"fwd": fwd, "bwd": bwd, "restore": restore, "psum": psum}
+
+
 def add_launches(rows, name, phase, n):
     """Adds `n` launches of phase `phase` to the row `name` of the kernels
     line (its `launches` and its `launches_by_phase`)."""
@@ -3512,12 +3842,12 @@ def add_launches(rows, name, phase, n):
     fail(f"no kernels row {name}")
 
 
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14}
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (1 always runs)")
     args = ap.parse_args()
     phases = {int(x) for x in args.phases.split(",")}
@@ -3567,7 +3897,7 @@ def main():
         t0 = time.time()
         phase_cli()
         log(f"[11] phase 11 {time.time() - t0:.2f}s")
-    p12 = p13 = None
+    p12 = p13 = p14 = None
     if 12 in phases:
         torch.cuda.empty_cache()
         t0 = time.time()
@@ -3578,17 +3908,26 @@ def main():
         t0 = time.time()
         p13 = phase_moe_prefix()
         log(f"[13] phase 13 {time.time() - t0:.2f}s")
+    if 14 in phases:
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        p14 = phase_parallel()
+        log(f"[14] phase 14 {time.time() - t0:.2f}s")
     if g3 is not None:
         rows.append(ring_row(g3, rg, errs["decode_attention"]))
         rows.append(slot_prefill_row(g3["cfg"], g3["slot"]["flash"],
                                      errs["flash_attention"]))
     if ALL_PHASES <= phases:
-        # the launches of phases 12 and 13, each counted from zero just
-        # before its path and read just after, added to their kernels' rows
+        # the launches of phases 12, 13 and 14, each counted from zero just
+        # before its path and read just after (phase 14: every rank of its
+        # meshes (a)-(c), over its training loop), added to their kernels'
+        # rows
         a, b, c = p13["a"], p13["b"], p13["c"]
         for name, phase, n in (
                 ("flash_attention[train]", "12", p12["fwd"]),
                 ("flash_attention_bwd", "12", p12["bwd"]),
+                ("flash_attention[train]", "14", p14["fwd"]),
+                ("flash_attention_bwd", "14", p14["bwd"]),
                 ("paged_decode[bf16]", "13a", a["paged_decode"]),
                 ("paged_prefill[bf16]", "13a", a["paged_prefill"]),
                 ("flash_attention[prefill_batch]", "13a", a["flash_engine"]),

@@ -1,26 +1,84 @@
-"""Which attention error does chip_smoke.py's phase 13 catch end to end?
-Builds the kernels (phase 1), then runs phase 13(b) (llama4-scout, greedy
-steps against the plain attention under the kernel run's MoE routes) and
-13(a) (mixtral-8x7b, the paged engine against its greedy replay under
-the engine's routes) with the ring decode kernel's output (ops
-.decode_attention_fwd, B3) scaled by a factor, patched at run time:
+"""Which faults do chip_smoke.py's end-to-end checks catch?
 
-    python3 smoke_mutation.py       # 13(b) at x0.9 and x0.97, 13(a) at x0.9
+Phase 13: builds the kernels (phase 1), then runs phase 13(b)
+(llama4-scout, greedy steps against the plain attention under the kernel
+run's MoE routes) and 13(a) (mixtral-8x7b, the paged engine against its
+greedy replay under the engine's routes) with the ring decode kernel's
+output (ops.decode_attention_fwd, B3) scaled by a factor, patched at run
+time. Phase 2 holds the kernel itself at the bf16 tolerance; this shows
+how large an error the end-to-end checks see on their own.
 
-Prints, for each case, whether the phase failed (caught) or passed. Phase
-2 holds the kernel itself at the bf16 tolerance; this shows how large an
-error the end-to-end checks see on their own. Needs a CUDA device.
+Phase 14 runs the trainer in processes of its own, so each of its faults
+is planted in a copy of this checkout's sources (in a temporary
+directory), where `chip_smoke.py --phases 1,14` then runs: the data
+axes' gradient mean left out of `sync_grads`, and gathered shards
+concatenated in reverse rank order.
+
+    python3 smoke_mutation.py              # 13(b) at x0.9 and x0.97, 13(a) at x0.9
+    python3 smoke_mutation.py --phase 14   # the two parallel-layer faults
+
+Prints, for each case, whether the phase failed (caught) or passed.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import os
+import shutil
+import subprocess
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CASES = (("13b", 0.9), ("13b", 0.97), ("13a", 0.9))
+# (name, file, text, the text planted in its place)
+FAULTS_14 = (
+    ("sync_grads without the data mean", "src/repro_torch/runtime/schedule.py",
+     "            g.div_(dp)\n", "            pass\n"),
+    ("gathered shards in reverse order", "src/repro_torch/parallel/comm.py",
+     "full.narrow(dim, r * k, k)", "full.narrow(dim, (n - 1 - r) * k, k)"),
+)
+
+
+def phase14():
+    for name, rel, old, new in FAULTS_14:
+        tmp = tempfile.mkdtemp(prefix="mutation_")
+        try:
+            shutil.copytree(os.path.join(HERE, "src"), os.path.join(tmp, "src"),
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            shutil.copy(os.path.join(HERE, "chip_smoke.py"), tmp)
+            path = os.path.join(tmp, rel)
+            with open(path) as f:
+                text = f.read()
+            if text.count(old) != 1:
+                raise SystemExit(f"{name}: {old!r} is not in {rel} once")
+            with open(path, "w") as f:
+                f.write(text.replace(old, new))
+            out = subprocess.run([sys.executable, "chip_smoke.py", "--phases",
+                                  "1,14"], cwd=tmp, capture_output=True,
+                                 text=True)
+            for line in out.stdout.splitlines():
+                if line.startswith("[14") and "] |" not in line and \
+                        "] rank " not in line:
+                    print(f"  {line}", flush=True)
+            failed = [ln for ln in out.stderr.splitlines() if "FAILED" in ln]
+            if out.returncode == 0:
+                verdict = "passed (not caught)"
+            elif any("phase 14" in ln for ln in failed):
+                verdict = "failed (caught)"
+            else:
+                verdict = f"not reached (exit {out.returncode})"
+            print(f"{name}: phase 14 {verdict}"
+                  f"{'; ' + failed[-1] if failed else ''}", flush=True)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", type=int, choices=(13, 14), default=13)
+    if ap.parse_args().phase == 14:
+        return phase14()
     sys.path.insert(0, HERE)
     sys.argv = [os.path.join(HERE, "chip_smoke.py")]
     import torch

@@ -9,10 +9,13 @@ the dtype name "bfloat16" in the manifest (npz has no bfloat16; the view is
 taken through torch, no ml_dtypes).
 
 - save(): the copy to host memory happens synchronously (a consistent
-  snapshot), the write runs on a background thread with async_=True.
+  snapshot), the write runs on a background thread with async_=True. From
+  a mesh (`mesh`, `spec_tree`: the leaves are this rank's shards) every
+  rank joins the all-gather of each leaf, and rank 0 alone writes.
 - restore(): tensors in the target tree's layout and dtypes, on `device`.
-  Placing leaves on a mesh (the reference's resharding restore) waits for
-  the parallel layer (ROADMAP A8).
+  With a mesh and a spec tree each rank takes its own slice of every
+  leaf, whatever mesh saved it (elastic re-mesh: what `data:2` saved
+  restores onto `pipe:2`, or onto one device), bit for bit.
 - Fault tolerance: latest_step() skips uncommitted (tmp) dirs; a partial
   save never shadows the previous good step.
 """
@@ -28,7 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import require_device
-from repro_torch.tree import tree_map, tree_paths
+from repro_torch.parallel import sharding as S
+from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
 _SEP = "//"
 
@@ -61,16 +65,27 @@ def _from_storable(arr: np.ndarray, name: str) -> torch.Tensor:
 
 
 def save(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None,
-         async_: bool = False) -> Optional[threading.Thread]:
-    os.makedirs(ckpt_dir, exist_ok=True)
-    final = os.path.join(ckpt_dir, f"step_{step:08d}")
-    tmp = final + ".tmp"
+         async_: bool = False, mesh=None,
+         spec_tree=None) -> Optional[threading.Thread]:
     flat: Dict[str, np.ndarray] = {}
     leaves = {}
-    for path, leaf in tree_paths(tree):
+    specs = (tree_leaves(spec_tree) if spec_tree is not None
+             else [None] * len(tree_paths(tree)))
+    writer = mesh is None or mesh.rank == 0
+    for (path, leaf), spec in zip(tree_paths(tree), specs):
+        if spec is not None:
+            with torch.no_grad():
+                leaf = S.gather_leaf(leaf, spec, mesh)
+        if not writer:
+            continue
         k = _key(path)
         flat[k], name = _to_storable(leaf)
         leaves[k] = {"shape": list(leaf.shape), "dtype": name}
+    if not writer:
+        return None
+    os.makedirs(ckpt_dir, exist_ok=True)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + ".tmp"
     meta = {"step": step, "extra": extra or {}, "leaves": leaves}
 
     def _write():
@@ -104,10 +119,12 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, target_tree, step: Optional[int] = None,
-            device="cuda"):
+            device="cuda", mesh=None, spec_tree=None):
     """Restore into the structure of `target_tree` (tensors; their shapes
     and dtypes are the target's) on `device` (default "cuda"; raises
-    without a CUDA device). Returns (tree, manifest dict)."""
+    without a CUDA device). With `mesh` and `spec_tree` the target's
+    leaves are this rank's shards, and each gets its slice of the stored
+    leaf. Returns (tree, manifest dict)."""
     dev = require_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -118,11 +135,16 @@ def restore(ckpt_dir: str, target_tree, step: Optional[int] = None,
         manifest = json.load(f)
     arrays = np.load(os.path.join(d, "arrays.npz"))
     out = {}
-    for path, ref in tree_paths(target_tree):
+    specs = (tree_leaves(spec_tree) if spec_tree is not None
+             else [None] * len(tree_paths(target_tree)))
+    for (path, ref), spec in zip(tree_paths(target_tree), specs):
         key = _key(path)
         if key not in arrays:
             raise KeyError(f"checkpoint missing leaf {key}")
-        t = _from_storable(arrays[key], manifest["leaves"][key]["dtype"])
+        arr = arrays[key]
+        if mesh is not None and spec is not None:
+            arr = S.local_slice(arr, spec, mesh)    # copied below, alone
+        t = _from_storable(arr, manifest["leaves"][key]["dtype"])
         if tuple(t.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: ckpt shape {tuple(t.shape)} != "
                              f"{tuple(ref.shape)}")

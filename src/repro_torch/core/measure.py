@@ -55,12 +55,12 @@ BASELINE_PLAN = MemoryPlan(remat="none", microbatches=1,
 # bf16 metric/loss scalars + softmax statistics kept in f32.
 BYTES_F32 = 4
 
-MeshLike = Dict[str, int]   # a plain {axis: size} dict (no device mesh yet)
+MeshLike = Dict[str, int]   # a plain {axis: size} dict
 
 
 def mesh_shape_of(mesh: MeshLike) -> Dict[str, int]:
-    """A copy of an {axis: size} mesh description. Device meshes wait for
-    the parallel layer (ROADMAP queue A item 5)."""
+    """A copy of an {axis: size} mesh description (measurement plans on
+    mesh sizes; the measurer itself runs on one card)."""
     if not isinstance(mesh, dict):
         raise TypeError(f"mesh must be an {{axis: size}} dict, got "
                         f"{type(mesh).__name__}")
@@ -244,8 +244,8 @@ class CudaMeasurer(MemoryMeasurer):
         if n_devices_of(mesh_shape_of(mesh)) != 1:
             raise NotImplementedError(
                 f"CudaMeasurer measures on one card, not a mesh of "
-                f"{n_devices_of(mesh_shape_of(mesh))} devices (needs the "
-                "parallel layer, ROADMAP queue A item 5)")
+                f"{n_devices_of(mesh_shape_of(mesh))} devices (measuring "
+                "over a mesh is not ported: ROADMAP queue A item 5)")
         dev = torch.device(device)
         if dev.type != "cuda":
             raise ValueError(f"CudaMeasurer measures on a CUDA device, not "

@@ -13,15 +13,25 @@ reference plans for a TPU v5e.
                       the card (core.measure.CudaMeasurer); its params are
                       released before the trainer makes its own, and the
                       planning steps and their time are printed;
-  --mesh ''           the (data, model) host mesh of one card;
+  --mesh ''           the (data, model) host mesh of the world's devices;
   --mesh auto         the mesh is a planned output (search.execplan
-                      .auto_plan over one device).
+                      .auto_plan over the world's devices);
+  --mesh data:2,pipe:2  a forced mesh: FSDP over "data", the 1F1B pipeline
+                      over "pipe" (a "model" axis above 1 raises: ROADMAP
+                      queue A item 5).
 
-Meshes of more devices (a forced `--mesh data:2,...`) need the parallel
-layer, which is not ported (ROADMAP queue A item 5): they raise. `main`
-prints the capacity model's resident + transient prediction for the plan
-under the classified workload and, on a CUDA device, the measured
-`torch.cuda.max_memory_allocated()` beside it.
+A mesh of more than one rank runs as that many processes: under
+`torchrun` the world torchrun made (one process per rank, `--mesh auto`
+plans over its size); otherwise the CLI spawns its own local ranks
+(`launch.mesh.spawn_ranks`), joined over `--dist-backend` (default nccl on
+the card, which needs one card a rank, and gloo on the CPU; gloo also lets
+ranks share one card). Every rank reads the same global batch and keeps
+its rows; rank 0 prints. `main` prints the capacity model's resident +
+transient prediction for the plan under the classified workload and, on a
+CUDA device, the measured `torch.cuda.max_memory_allocated()` beside it;
+on a mesh, one line a rank: its parameter elements, its peak, its flash
+forward / backward launches and the bytes its collectives staged through
+the host.
 
 Examples:
   # tiny CPU run (reduced config), 50 steps:
@@ -31,14 +41,23 @@ Examples:
   # full width on one GPU, a few steps, classified on the card:
   PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
       --seq 2048 --batch 4 --steps 4 --lr 1e-4 --backend cuda
+
+  # four ranks on the CPU, FSDP over data and two pipeline stages:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
+      --reduced --depth 4 --seq 32 --batch 8 --steps 5 --device cpu \\
+      --remat none --microbatches 4 --optimizer adamw_f32 \\
+      --mesh data:2,pipe:2
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import hw as HW
 from repro_torch.configs import get_config
@@ -47,11 +66,17 @@ from repro_torch.core import measure as MM
 from repro_torch.core import predictor as PR
 from repro_torch.core import profiler as PF
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import flash_attention_bwd as FB
+from repro_torch.launch import mesh as LM
 from repro_torch.models import init_params
 from repro_torch.models.model import require_device
 from repro_torch.optim import optimizers as opt
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding as S
 from repro_torch.runtime import fault as F
 from repro_torch.runtime import schedule as SCH
+from repro_torch.runtime import schedule_kinds as SK
 from repro_torch.runtime.train_step import TrainStepConfig
 from repro_torch.search import execplan as XP
 from repro_torch.search import space as SP
@@ -60,7 +85,6 @@ from repro_torch.tree import tree_leaves
 
 # the device the plan is made for
 PLAN_HW = HW.H100
-N_DEVICES = 1
 
 
 def reduced_100m(cfg):
@@ -73,19 +97,90 @@ def reduced_100m(cfg):
         lru_width=None if cfg.lru_width is None else 512)
 
 
-def fit_microbatches(plan, batch: int):
-    """Clamp the plan's microbatch count to one that divides the global
-    batch (the scan schedule's only constraint without a pipe axis),
-    preferring the nearest to the planned value. The note is the reference
-    trainer's, whose pipe axis is 1 on a mesh of one device."""
+def fit_microbatches(cfg, plan, mesh_shape: dict, batch: int):
+    """Clamp the plan's microbatch count to what the mesh can execute: it
+    must divide the global batch and, on pipe meshes, satisfy the shared
+    1F1B executability predicate (schedule_kinds.pipeline_problems: fill
+    the pipeline, per-microbatch batch divisible by the data axes; the
+    flat schedules need the per-microbatch batch divisible by the data
+    axes, which split each microbatch's rows). Prefers the nearest valid
+    value to the planned one."""
+    pipe = max(int(mesh_shape.get("pipe", 1)), 1)
+    dp = int(mesh_shape.get("pod", 1)) * int(mesh_shape.get("data", 1))
+
+    def ok(m):
+        if batch % m or (batch // m) % dp:
+            return False
+        if pipe <= 1:
+            return True
+        return SK.pipeline_executable(cfg, m, mesh_shape, batch)
+
     m0 = max(plan.microbatches, 1)
-    if batch % m0 == 0:
+    if ok(m0):
         return plan
-    fits = [m for m in range(1, batch + 1) if batch % m == 0]
+    fits = [m for m in range(1, batch + 1) if ok(m)]
+    if not fits:
+        why = "; ".join(SK.pipeline_problems(cfg, m0, mesh_shape, batch))
+        raise ValueError(f"global batch {batch} cannot run on mesh "
+                         f"{mesh_shape}: {why}")
     micro = min(fits, key=lambda m: (abs(m - m0), m))
     print(f"note: adjusted microbatches {m0} -> {micro} to fit "
-          f"pipe=1, batch={batch}")
+          f"pipe={pipe}, batch={batch}")
     return dataclasses.replace(plan, microbatches=micro)
+
+
+def parse_mesh(spec: str) -> dict:
+    """'data:2,pipe:2' -> {'data': 2, 'pipe': 2}. Unknown axis names are
+    rejected: a typo ('pip:2') would otherwise train on an inert axis."""
+    out = {}
+    for part in spec.split(","):
+        axis, sep, n = part.partition(":")
+        axis = axis.strip()
+        if not sep or not n.strip().isdigit() or int(n) < 1:
+            raise ValueError(f"bad --mesh entry {part!r}; want axis:size "
+                             "with size >= 1")
+        if axis not in LM.CANONICAL_AXES:
+            raise ValueError(f"unknown mesh axis {axis!r}; "
+                             f"known: {LM.CANONICAL_AXES}")
+        if axis in out:
+            raise ValueError(f"duplicate mesh axis {axis!r} in {spec!r}")
+        out[axis] = int(n)
+    return out
+
+
+def _rank(device, argv):
+    """One spawned rank of the CLI: rank 0 prints, the others are
+    silent."""
+    if dist.get_rank() != 0:
+        sys.stdout = open(os.devnull, "w")
+    return main(argv)
+
+
+def _report_ranks(mesh, params, dev, before, steps):
+    """Rank 0 prints one line a rank: its parameter elements, its peak
+    device memory, its flash launches, and the bytes its collectives staged
+    through the host and the seconds they took (host clock), a step. nccl
+    collectives run on the stream and are not timed."""
+    fwd, bwd, staged, secs = (a - b for a, b in zip(_counters(), before))
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    steps = max(steps, 1)
+    mine = (mesh.rank, sum(x.numel() for x in tree_leaves(params)), peak,
+            fwd, bwd, staged / steps, secs / steps)
+    rows = [None] * dist.get_world_size()
+    dist.all_gather_object(rows, mine)
+    gloo = dist.get_backend() == "gloo"
+    for r, n, pk, f, b, st, sec in rows:
+        mem = ("not measured (CPU)" if pk is None
+               else f"{pk / 1e9:.3f} GB")
+        took = f"{sec:.2f} s a step" if gloo else "not timed (nccl)"
+        print(f"rank {r}: param elements {n:,}; max_memory_allocated "
+              f"{mem}; flash launches forward {f}, backward {b}; staged "
+              f"through the host {st:.0f} B a step; collectives {took}")
+
+
+def _counters():
+    return (FA.launches, FB.launches, comm.staged_bytes, comm.seconds)
 
 
 def predicted_bytes(cfg, shape: ShapeConfig, plan: PR.MemoryPlan, cls,
@@ -109,9 +204,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--mesh", default="",
-                    help="'' = the (data, model) host mesh of one card; "
-                         "'auto' = plan the mesh (one device); a forced "
-                         "mesh needs the parallel layer and raises")
+                    help="'' = the (data, model) host mesh of the world's "
+                         "devices; 'auto' = plan the mesh over them; "
+                         "'data:2,pipe:2' = forced mesh")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="the host mesh's model axis, as the reference's "
                          "flag; on one card it has no effect (the axis is "
@@ -133,13 +228,36 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--dist-backend", default="",
+                    choices=["", *LM.BACKENDS],
+                    help="torch.distributed backend of a mesh's ranks "
+                         "(default nccl on cuda, gloo on cpu)")
     args = ap.parse_args(argv)
     dev = require_device(args.device)
-    if args.mesh not in ("", "auto"):
-        raise NotImplementedError(
-            f"--mesh {args.mesh!r}: a forced mesh needs the parallel layer, "
-            "which is not ported (ROADMAP queue A item 5); '' and 'auto' "
-            "plan for one device")
+    backend = args.dist_backend or ("nccl" if dev.type == "cuda"
+                                    else "gloo")
+    forced_mesh = (parse_mesh(args.mesh) if args.mesh not in ("", "auto")
+                   else None)
+    if forced_mesh and forced_mesh.get("model", 1) > 1:
+        raise NotImplementedError(f"--mesh {args.mesh!r}: {SCH.TENSOR_PARALLEL}")
+    live = dist.is_available() and dist.is_initialized()
+    if not live:
+        world = (int(os.environ["WORLD_SIZE"]) if LM.under_torchrun()
+                 else 1)
+        if forced_mesh:
+            n = 1
+            for v in forced_mesh.values():
+                n *= v
+            if LM.under_torchrun() and n != world:
+                raise ValueError(f"--mesh {args.mesh!r} needs {n} ranks; "
+                                 f"torchrun started {world}")
+            world = n
+        if world > 1:
+            return LM.spawn_ranks(_rank, world, backend, dev.type,
+                                  args=(argv,))[0]
+    world = dist.get_world_size() if live else 1
+    if live and dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
 
     cfg = get_config(args.arch)
     if args.reduced_100m:
@@ -174,11 +292,12 @@ def main(argv=None):
     cuda_measurer = None
     if args.mesh == "auto":
         if args.backend == "cuda":
-            cuda_measurer = MM.CudaMeasurer({"data": N_DEVICES})
-        cls, eplan = XP.auto_plan(cfg, shape, n_devices=N_DEVICES,
+            cuda_measurer = MM.CudaMeasurer({"data": world})
+        cls, eplan = XP.auto_plan(cfg, shape, n_devices=world,
                                   strategy=args.strategy, base_seq=base_seq,
                                   measurer=cuda_measurer, hw=PLAN_HW)
-        plan = fit_microbatches(apply_overrides(eplan.plan), args.batch)
+        plan = fit_microbatches(cfg, apply_overrides(eplan.plan),
+                                eplan.mesh_shape, args.batch)
         if plan != eplan.plan:
             eplan = dataclasses.replace(
                 eplan, plan=plan,
@@ -186,11 +305,10 @@ def main(argv=None):
                                            eplan.pipe))
         print(f"WSMC[auto]: {cls.category.value} (alpha={cls.alpha:.2f}, "
               f"inc={cls.inc:.2f}) -> {eplan.describe()}")
-        eplan.build()
     else:
-        mesh_shape = XP.host_execution(cfg, shape, PR.MemoryPlan(),
-                                       N_DEVICES,
-                                       args.model_parallel).mesh_shape
+        mesh_shape = forced_mesh or XP.host_execution(
+            cfg, shape, PR.MemoryPlan(), world,
+            args.model_parallel).mesh_shape
         if args.backend == "cuda":
             measurer = cuda_measurer = MM.CudaMeasurer(mesh_shape)
         else:
@@ -217,9 +335,10 @@ def main(argv=None):
                   f"{cls.category.value} (alpha={cls.alpha:.2f}, "
                   f"inc={cls.inc:.2f}) -> plan {plan} "
                   f"{res.describe_outcome()}")
-        plan = fit_microbatches(plan, args.batch)
+        plan = fit_microbatches(cfg, plan, mesh_shape, args.batch)
         eplan = XP.for_mesh(cfg, shape, plan, mesh_shape, policy=policy)
         print(f"execution: {eplan.describe()}")
+    mesh, strategy = eplan.build(world)
     if cuda_measurer is not None:
         print(f"planning: {cuda_measurer.steps} steps measured on the card "
               f"in {cuda_measurer.step_seconds:.2f}s")
@@ -232,10 +351,22 @@ def main(argv=None):
         warmup_steps=max(args.steps // 10, 1), total_steps=args.steps)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = init_params(gen, cfg, device=dev)
+    spec_tree = ckpt_specs = None
+    if mesh is None:
+        params = init_params(gen, cfg, device=dev)
+        n_params = sum(x.numel() for x in tree_leaves(params))
+    else:
+        abstract = init_params(None, cfg, device="meta")
+        n_params = sum(x.numel() for x in tree_leaves(abstract))
+        spec_tree = S.param_specs(cfg, abstract, strategy, mesh)
+        del abstract
+        params = S.init_local_params(gen, cfg, dev, spec_tree, mesh)
+        ckpt_specs = {"params": spec_tree,
+                      "opt": opt.state_specs(tcfg.optimizer, spec_tree)}
     opt_state = opt.init_state(tcfg.optimizer, params)
-    n_params = sum(x.numel() for x in tree_leaves(params))
-    step_fn = SCH.make_train_step(cfg, tcfg, schedule=eplan.schedule)
+    step_fn = SCH.make_train_step(cfg, tcfg, mesh=mesh,
+                                  schedule=eplan.schedule,
+                                  spec_tree=spec_tree)
     print(f"arch={cfg.name} params={n_params:,} device={dev} "
           f"mesh={eplan.mesh_shape} schedule={eplan.schedule}")
     res, tra = predicted_bytes(cfg, shape, plan, cls, eplan.mesh_shape)
@@ -248,7 +379,8 @@ def main(argv=None):
                                          seq_len=args.seq,
                                          global_batch=args.batch,
                                          seed=args.seed))
-    ckpt_mgr = (F.CheckpointManager(args.ckpt_dir, args.ckpt_interval)
+    ckpt_mgr = (F.CheckpointManager(args.ckpt_dir, args.ckpt_interval,
+                                    mesh=mesh, spec_tree=ckpt_specs)
                 if args.ckpt_dir else None)
     start_step = 0
     if ckpt_mgr and ckpt_mgr.latest_step() is not None:
@@ -263,11 +395,12 @@ def main(argv=None):
 
     def on_metrics(step, m):
         if step % args.log_every == 0:
-            print(f"step {step:5d} loss={m['loss']:.4f} "
-                  f"gnorm={m['grad_norm']:.2f} lr={m['lr']:.2e}", flush=True)
+            print(f"step {step:5d} loss={m['loss']:.6f} "
+                  f"gnorm={m['grad_norm']:.6f} lr={m['lr']:.2e}", flush=True)
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    before = _counters()
     t0 = time.time()
     params, opt_state, last, hist = F.run_train_loop(
         train_step=step_fn, params=params, opt_state=opt_state,
@@ -284,6 +417,8 @@ def main(argv=None):
         print(f"memory: torch.cuda.max_memory_allocated() "
               f"{peak / 1e9:.3f} GB; predicted {(res + tra) / 1e9:.3f} GB; "
               f"measured / predicted {peak / (res + tra):.4f}")
+    if mesh is not None:
+        _report_ranks(mesh, params, dev, before, last - start_step)
     return 0
 
 

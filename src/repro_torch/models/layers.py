@@ -31,7 +31,10 @@ def _normal(gen, shape, dtype, device) -> torch.Tensor:
     """N(0, INIT_STD) drawn in f32 from `gen`, stored in `dtype`. A leaf of
     three or more axes (a stacking axis, an expert axis) is filled slice by
     slice along its leading axis, so that the f32 draw of a full-width
-    stacked leaf never exists whole."""
+    stacked leaf never exists whole. On the meta device (shapes only)
+    nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     if len(shape) >= 3:
         out = torch.empty(shape, dtype=dtype, device=device)
         for r in range(shape[0]):

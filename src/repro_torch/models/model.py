@@ -343,29 +343,94 @@ def apply(params, cfg: ModelConfig, tokens, *, positions=None,
             for i, blk in enumerate(cfg.unit):
                 c = _tree_index(cache["units"][i], r)
                 x = run_block(_tree_index(params["units"][i], r), blk, x, c)
-    elif cfg.unit:
-        def unit_body(x, unit_params):
-            aux: Dict[str, Any] = {}
-            for i, blk in enumerate(cfg.unit):
-                x, _, a = block_apply(unit_params[i], cfg, blk, x, pos,
-                                      context=ctx, settings=settings)
-                _merge_aux(aux, a)
-            return x, aux
-
-        body = unit_wrapper(unit_body) if unit_wrapper else unit_body
-        for r in range(cfg.repeats):
-            x, aux = body(x, [_tree_index(t, r) for t in params["units"]])
-            _merge_aux(aux_acc, aux)
-    for i, blk in enumerate(cfg.tail):
-        c = cache["tail"][i] if with_cache else None
-        x = run_block(params["tail"][i], blk, x, c)
+        for i, blk in enumerate(cfg.tail):
+            x = run_block(params["tail"][i], blk, x, cache["tail"][i])
+    else:
+        x, aux = unit_stack_forward(params["units"], cfg, x, pos,
+                                    settings=settings, context=ctx,
+                                    unit_wrapper=unit_wrapper)
+        _merge_aux(aux_acc, aux)
+        x = _tail_forward(params, cfg, x, pos, aux_acc, settings=settings,
+                          context=ctx, decode=decode,
+                          block_tables=block_tables)
 
     if head_rows is not None and not decode:
         x = torch.gather(
             x, 1, head_rows.long()[:, None, None].expand(b, 1, x.shape[-1]))
     elif logits_last_only and not decode:
         x = x[:, -1:]
+    return _head(params, cfg, x), cache, aux_acc
+
+
+# ---------------------------------------------------------------------------
+# Staged forward pieces (the pipeline runtime): embed | unit stack | tail + head
+# ---------------------------------------------------------------------------
+
+def _zero_aux(device) -> Dict[str, Any]:
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {"lb_loss": zero, "z_loss": zero}
+
+
+def unit_stack_forward(units, cfg: ModelConfig, x, pos, *,
+                       settings: ModelSettings = ModelSettings(),
+                       context: int = 0,
+                       unit_wrapper: Optional[Callable] = None):
+    """Forward through the stacked unit pattern, or a slice of it (a 1F1B
+    pipeline stage's body), on the cache-free path. `units` has the layout
+    of params["units"] (one tree per unit position), each leaf stacked on
+    a leading repeats axis or the list of its per-repeat tensors; as many
+    repeats run as the leaves hold. `unit_wrapper` wraps each repeat's
+    unit_body(x, unit_params) -> (x, aux) (remat, a gather of sharded
+    weights). Returns (x, aux sums)."""
+    ctx = context or x.shape[1]
+    aux_acc = _zero_aux(x.device)
+    if not cfg.unit or not cfg.repeats:
+        return x, aux_acc
+
+    def unit_body(x, unit_params):
+        aux: Dict[str, Any] = {}
+        for i, blk in enumerate(cfg.unit):
+            x, _, a = block_apply(unit_params[i], cfg, blk, x, pos,
+                                  context=ctx, settings=settings)
+            _merge_aux(aux, a)
+        return x, aux
+
+    body = unit_wrapper(unit_body) if unit_wrapper else unit_body
+    first = units[0]
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    for r in range(len(first)):
+        x, aux = body(x, [_tree_index(t, r) for t in units])
+        _merge_aux(aux_acc, aux)
+    return x, aux_acc
+
+
+def _tail_forward(params, cfg: ModelConfig, x, pos, aux_acc, *,
+                  settings: ModelSettings, context: int, decode: bool = False,
+                  block_tables=None):
+    """The tail blocks without a cache; their aux merged into aux_acc."""
+    for i, blk in enumerate(cfg.tail):
+        x, _, aux = block_apply(params["tail"][i], cfg, blk, x, pos,
+                                decode=decode, context=context,
+                                settings=settings, block_tables=block_tables)
+        _merge_aux(aux_acc, aux)
+    return x
+
+
+def _head(params, cfg: ModelConfig, x):
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["head"]
-    logits = layers.lm_head(head, cfg, x)
-    return logits, cache, aux_acc
+    return layers.lm_head(head, cfg, x)
+
+
+def tail_head_forward(params, cfg: ModelConfig, x, pos, *,
+                      settings: ModelSettings = ModelSettings(),
+                      context: int = 0):
+    """The remainder after the unit stack: tail blocks -> final norm -> LM
+    head (the last pipeline stage's). Returns (logits f32, aux sums)."""
+    ctx = context or x.shape[1]
+    aux_acc = _zero_aux(x.device)
+    x = _tail_forward(params, cfg, x, pos, aux_acc, settings=settings,
+                      context=ctx)
+    return _head(params, cfg, x), aux_acc
+

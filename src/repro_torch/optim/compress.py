@@ -3,8 +3,8 @@ per-tensor scale and stochastic rounding (unbiased).
 
 The random draws come from an explicit `torch.Generator`: they are not the
 reference package's `jax.random` bits, so the two agree in distribution,
-not bit for bit. The collective form (`compressed_psum`) belongs to the
-parallel layer, which is not ported yet.
+not bit for bit. `compressed_psum` is the collective form: the mean over a
+process group with an int8 payload summed in int32.
 """
 from __future__ import annotations
 
@@ -40,3 +40,25 @@ def compress_roundtrip(tree, gen: torch.Generator):
         q, s = quantize_int8(leaf, gen)
         return dequantize_int8(q, s, leaf.dtype)
     return tree_map(one, tree)
+
+
+def compressed_psum(x: torch.Tensor, group, gen: torch.Generator):
+    """The int8-payload mean of `x` over the ranks of `group`: (1) an
+    all-reduce max agrees on one scale, amax / 127; (2) each rank rounds
+    x / scale stochastically to int8 (draws from `gen`); (3) the codes are
+    summed as int32 (no overflow below 2^24 ranks); (4) the sum times the
+    scale over the rank count, in x's dtype. The codes travel as int32, as
+    the reference's psum sums them."""
+    from repro_torch.parallel import comm
+    xf = x.to(torch.float32)
+    amax = comm.all_reduce(torch.max(torch.abs(xf)), group, op="max")
+    scale = torch.clamp(amax / 127.0, min=1e-30)
+    y = xf / scale
+    lo = torch.floor(y)
+    u = torch.rand(x.shape, generator=gen, dtype=torch.float32,
+                   device=x.device)
+    q = torch.clamp(lo + (u < (y - lo)).to(torch.float32), -127, 127).to(
+        torch.int8)
+    total = comm.all_reduce(q.to(torch.int32), group)
+    n = comm.group_size(group)
+    return (total.to(torch.float32) * scale / n).to(x.dtype)

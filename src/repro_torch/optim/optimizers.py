@@ -14,6 +14,15 @@ trees. Leaves with a leading stacking axis (the unit pattern's [repeats,
 ...]) are updated one slice at a time: the update is elementwise along that
 axis, and the f32 temporaries of a whole full-width leaf would be
 gigabytes.
+
+On a mesh (`spec_tree` and `mesh` given, the leaves this rank's shards)
+every reduction over a leaf spans its shards: the global norm sums each
+leaf's squares over the mesh axes that shard it (a replicated leaf counts
+once), and Adafactor's row and column means and its update RMS reduce over
+the axes that shard the reduced dimensions. Adafactor factors a stacked
+[repeats, d] leaf across its repeats (the reference's own, fault F7), so on
+a pipe mesh its column moment reduces over the pipe stages too. The
+state mirrors the parameters' specs (`state_specs`).
 """
 from __future__ import annotations
 
@@ -22,6 +31,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.parallel.axes import Spec
+from repro_torch.parallel.sharding import entry_axes
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -83,17 +94,68 @@ def init_state(ocfg: OptimizerConfig, params) -> Any:
     raise ValueError(ocfg.kind)
 
 
+def state_specs(ocfg: OptimizerConfig, param_spec_tree):
+    """Specs for the optimizer state, mirroring the params'."""
+    if ocfg.kind in ("adamw_f32", "adamw_bf16"):
+        return {"m": param_spec_tree, "v": param_spec_tree, "count": Spec()}
+
+    def one(spec):
+        if len(spec) >= 2:
+            return {"vr": Spec(spec[:-1]),
+                    "vc": Spec(tuple(spec[:-2]) + (spec[-1],))}
+        return {"v": Spec(spec)}
+    return {"f": tree_map(one, param_spec_tree), "count": Spec()}
+
+
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def apply_updates(ocfg: OptimizerConfig, params, grads, state, lr):
+def apply_updates(ocfg: OptimizerConfig, params, grads, state, lr,
+                  spec_tree=None, mesh=None):
     """One update IN PLACE: params and state leaves are overwritten, and the
-    same trees returned as (params, state). lr: a float or 0-d tensor."""
+    same trees returned as (params, state). lr: a float or 0-d tensor. On
+    a mesh, the leaves are shards under `spec_tree`."""
     if ocfg.kind in ("adamw_f32", "adamw_bf16"):
         return _adamw(ocfg, params, grads, state, float(lr))
     if ocfg.kind == "adafactor":
-        return _adafactor(ocfg, params, grads, state, float(lr))
+        return _adafactor(ocfg, params, grads, state, float(lr), spec_tree,
+                          mesh)
     raise ValueError(ocfg.kind)
+
+
+class _Shards:
+    """Reductions over one leaf that span its shards: the mesh axes (of
+    size > 1) splitting each of its dimensions."""
+
+    def __init__(self, p, spec, mesh):
+        self.mesh = mesh
+        spec = tuple(spec or ()) + (None,) * p.dim()
+        self.axes = [tuple(a for a in entry_axes(e) if mesh is not None
+                           and mesh.shape[a] > 1) for e in spec[:p.dim()]]
+        self.numel = p.numel()
+        for ax in self.axes:
+            for a in ax:
+                self.numel *= mesh.shape[a]
+
+    def _reduce(self, t, axes):
+        from repro_torch.parallel import comm
+        for a in axes:
+            t = comm.all_reduce(t, self.mesh.groups[a])
+        return t
+
+    def mean(self, t, dim, p_dim, keepdim=False):
+        """t.mean(dim), t's dimension `dim` being the leaf's `p_dim`."""
+        axes = self.axes[p_dim]
+        if not axes:
+            return t.mean(dim=dim, keepdim=keepdim)
+        n = t.shape[dim]
+        for a in axes:
+            n *= self.mesh.shape[a]
+        return self._reduce(t.sum(dim=dim, keepdim=keepdim), axes) / n
+
+    def total(self, t):
+        """A sum over the whole leaf from this shard's partial sum."""
+        return self._reduce(t, sorted({a for ax in self.axes for a in ax}))
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -139,25 +201,28 @@ def _factored_slices(p, f):
     return [f]
 
 
-def _adafactor_step(gs, f):
+def _adafactor_step(gs, f, sh, rank):
     """The second-moment step of one slice from its (already updated)
-    statistics f."""
+    statistics f; sh reduces across the leaf's shards, whose last `rank`
+    dimensions the slice is."""
     gf = _f32(gs)
     if gs.dim() >= 2:
         vr, vc = f["vr"], f["vc"]
         denom = (vr[..., None] / torch.clamp(
-            vr.mean(dim=-1, keepdim=True)[..., None], min=1e-30)
+            sh.mean(vr, -1, rank - 2, keepdim=True)[..., None], min=1e-30)
             ) * vc[..., None, :]
         return gf / torch.sqrt(torch.clamp(denom, min=1e-30))
     return gf / torch.sqrt(torch.clamp(f["v"], min=1e-30))
 
 
-def _adafactor(ocfg, params, grads, state, lr):
+def _adafactor(ocfg, params, grads, state, lr, spec_tree=None, mesh=None):
     cf = _count_f32(state, tree_leaves(params)[0].device)
     rho = torch.clamp(1.0 - cf ** (-ocfg.decay_rate), max=0.999)
 
-    def upd(p, g, f):
+    def upd(p, g, f, spec=None):
         fs = _factored_slices(p, f)
+        sh = _Shards(p, spec, mesh)
+        r = p.dim()
         # the statistics first, and the sum of step^2 over the whole leaf:
         # the update is clipped by the leaf's RMS, not a slice's
         sq = torch.zeros((), dtype=torch.float32, device=p.device)
@@ -165,42 +230,57 @@ def _adafactor(ocfg, params, grads, state, lr):
             gf = _f32(gs)
             g2 = gf * gf + 1e-30
             if gs.dim() >= 2:
-                fl["vr"].copy_(rho * fl["vr"] + (1 - rho) * g2.mean(dim=-1))
-                fl["vc"].copy_(rho * fl["vc"] + (1 - rho) * g2.mean(dim=-2))
+                fl["vr"].copy_(rho * fl["vr"]
+                               + (1 - rho) * sh.mean(g2, -1, r - 1))
+                fl["vc"].copy_(rho * fl["vc"]
+                               + (1 - rho) * sh.mean(g2, -2, r - 2))
             else:
                 fl["v"].copy_(rho * fl["v"] + (1 - rho) * g2)
-            st = _adafactor_step(gs, fl)
+            st = _adafactor_step(gs, fl, sh, r)
             sq += (st * st).sum()
-        rms = torch.sqrt(sq / p.numel() + 1e-30)
+        rms = torch.sqrt(sh.total(sq) / sh.numel + 1e-30)
         div = torch.clamp(rms / ocfg.clip_threshold, min=1.0)
         for ps, gs, fl in zip(_slices(p), _slices(g), fs):
-            st = _adafactor_step(gs, fl) / div
+            st = _adafactor_step(gs, fl, sh, r) / div
             pf = _f32(ps)
             pf = pf - lr * (st + ocfg.weight_decay * pf)
             ps.copy_(pf)
 
-    tree_map(upd, params, grads, state["f"])
+    if spec_tree is None:
+        tree_map(upd, params, grads, state["f"])
+    else:
+        tree_map(upd, params, grads, state["f"], spec_tree)
     return params, state
 
 
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32 (0-d tensor)."""
-    total = None
-    for x in tree_leaves(tree):
-        for xs in _slices(x):
-            t = (_f32(xs) ** 2).sum()
-            total = t if total is None else total + t
-    return torch.sqrt(total)
+def global_norm(tree, spec_tree=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32 (0-d tensor). On a
+    mesh the leaves are shards under `spec_tree`: the squares of the leaves
+    each set of mesh axes shards are summed over those axes."""
+    if spec_tree is None:
+        total = None
+        for x in tree_leaves(tree):
+            for xs in _slices(x):
+                t = (_f32(xs) ** 2).sum()
+                total = t if total is None else total + t
+        return torch.sqrt(total)
+    parts = {}
+    for x, spec in zip(tree_leaves(tree), tree_leaves(spec_tree)):
+        sh = _Shards(x, spec, mesh)
+        key = tuple(sorted({a for ax in sh.axes for a in ax}))
+        t = sum((_f32(xs) ** 2).sum() for xs in _slices(x))
+        parts[key] = (sh, parts[key][1] + t) if key in parts else (sh, t)
+    return torch.sqrt(sum(sh.total(t) for sh, t in parts.values()))
 
 
 @torch.no_grad()
-def clip_by_global_norm(tree, max_norm: float):
+def clip_by_global_norm(tree, max_norm: float, spec_tree=None, mesh=None):
     """Scale every leaf IN PLACE by min(1, max_norm / norm) (in f32, cast
     back to the leaf's dtype); returns (the same tree, the norm before)."""
-    norm = global_norm(tree)
+    norm = global_norm(tree, spec_tree, mesh)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for x in tree_leaves(tree):
         for xs in _slices(x):

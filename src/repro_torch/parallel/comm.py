@@ -1,0 +1,206 @@
+"""The port's collectives over `torch.distributed` process groups: all-reduce,
+all-gather, reduce-scatter, broadcast and point-to-point send / receive,
+and the autograd Function that all-gathers a weight shard in the forward
+and reduce-scatters its gradient in the backward.
+
+A group's backend is the one its process group was made with (the caller
+chose it: `launch.mesh.spawn_ranks`, `torchrun`).
+
+- `nccl` groups take CUDA tensors as they are, on the card: all-gather
+  and reduce-scatter are NCCL's own (`all_gather_into_tensor`,
+  `reduce_scatter_tensor`), and every collective is queued on the current
+  stream and returns at once.
+- `gloo` computes on host memory. Where a CUDA tensor meets a `gloo`
+  group, this module copies it into pinned host memory, runs the
+  collective there and copies the result back to the tensor's device, and
+  adds the bytes it moved each way to `staged_bytes`. That is not a
+  fallback: the computation stays on the card, and only the bytes of the
+  collective cross the host, as they must when ranks share one card (NCCL
+  refuses two ranks on one device). On gloo, all-gather and
+  reduce-scatter are all-reduces, which gloo ran about twice as fast as
+  its all-gather on one host (a CPU sandbox, two ranks): a gather sums the
+  bytes of a buffer that is zero outside each rank's own block (a sum of
+  bytes with zeros, so exact to the bit), and a reduce-scatter keeps this
+  rank's chunk of the sum.
+
+Ranks of a group are numbered as `launch.mesh.Mesh` makes them: a group
+along one mesh axis lists its global ranks in the order of that axis's
+coordinate, so group rank = coordinate.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+
+import torch
+import torch.distributed as dist
+
+# bytes copied between the card and the host for gloo collectives (both
+# directions), and host seconds spent in gloo collectives (staging
+# included), since the process started or the caller reset them. nccl
+# collectives are queued on the stream, so neither counts them.
+staged_bytes = 0
+seconds = 0.0
+
+
+def _gloo(group) -> bool:
+    return dist.get_backend(group) == "gloo"
+
+
+@contextlib.contextmanager
+def _clock(device: torch.device, group):
+    """Adds a gloo collective's host time to `seconds`. For a CUDA tensor
+    the card is synchronised first, so the time is the collective's and
+    not that of the kernels queued before it (its staging copy would wait
+    for them anyway). An nccl collective is neither synchronised nor
+    timed: it runs on the stream, beside the compute."""
+    global seconds
+    if not _gloo(group):
+        yield
+        return
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        seconds += time.perf_counter() - t0
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    return t.is_cuda and _gloo(group)
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    global staged_bytes
+    staged_bytes += t.numel() * t.element_size()
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return h.copy_(t.detach())
+
+
+def _to_device(h: torch.Tensor, device) -> torch.Tensor:
+    global staged_bytes
+    staged_bytes += h.numel() * h.element_size()
+    return h.to(device)
+
+
+def _buffer(t: torch.Tensor, group) -> torch.Tensor:
+    """A copy of `t` for an in-place collective: in pinned host memory
+    where gloo meets a CUDA tensor, else beside `t`."""
+    return _to_host(t) if _staged(t, group) else t.detach().clone()
+
+
+def _back(buf: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return _to_device(buf, t.device) if buf.device != t.device else buf
+
+
+def group_size(group) -> int:
+    return dist.get_world_size(group)
+
+
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """A new tensor: the sum (or "max") of `t` over the group."""
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    with _clock(t.device, group):
+        buf = _buffer(t, group)
+        dist.all_reduce(buf, op=red, group=group)
+        return _back(buf, t)
+
+
+def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The group's tensors concatenated along `dim`, in group-rank order
+    (each rank's `t` of the same shape), on `t`'s device; contiguous, as
+    `sharding.Gatherer` assumes when it re-gathers a saved weight."""
+    global staged_bytes
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    with _clock(t.device, group):
+        if not _gloo(group):
+            x = t.detach().movedim(dim, 0).contiguous()
+            out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
+                              dtype=t.dtype, device=t.device)
+            dist.all_gather_into_tensor(out, x, group=group)
+            return out.movedim(0, dim).contiguous()
+        staged = t.is_cuda
+        shape = list(t.shape)
+        k = shape[dim]
+        shape[dim] = k * n
+        full = torch.zeros(shape, dtype=t.dtype, pin_memory=staged)
+        full.narrow(dim, r * k, k).copy_(t.detach())
+        if staged:
+            staged_bytes += t.numel() * t.element_size()
+        dist.all_reduce(full.view(torch.uint8), group=group)
+        return _back(full, t)
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This rank's chunk along `dim` of the sum of `t` over the group, on
+    `t`'s device."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    with _clock(t.device, group):
+        if not _gloo(group):
+            x = t.detach().movedim(dim, 0).contiguous()
+            out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                              dtype=t.dtype, device=t.device)
+            dist.reduce_scatter_tensor(out, x, group=group)
+            return out.movedim(0, dim).contiguous()
+        buf = _buffer(t, group)
+        dist.all_reduce(buf, group=group)
+        return _back(buf, t).chunk(n, dim)[r].contiguous()
+
+
+def broadcast(t: torch.Tensor, group, src: int) -> torch.Tensor:
+    """A new tensor: `t` of the rank whose GLOBAL rank is `src`, on every
+    rank of the group (each passes a tensor of the same shape and dtype)."""
+    with _clock(t.device, group):
+        buf = _buffer(t, group)
+        dist.broadcast(buf, src=src, group=group)
+        return _back(buf, t)
+
+
+class Pending:
+    """An isend in flight; keeps its (staged) buffer alive until `wait`."""
+
+    def __init__(self, work, buf):
+        self.work, self.buf = work, buf
+
+    def wait(self):
+        self.work.wait()
+        self.buf = None
+
+
+def isend(t: torch.Tensor, dst: int, group, tag: int = 0) -> Pending:
+    """Start sending `t` to GLOBAL rank `dst`; wait() the result before
+    the step ends. (nccl ignores the tag: sends to one peer arrive in the
+    order they were made, as the pipeline's are received.)"""
+    with _clock(t.device, group):
+        buf = _to_host(t) if _staged(t, group) else t.detach().contiguous()
+        return Pending(dist.isend(buf, dst=dst, group=group, tag=tag), buf)
+
+
+def recv(shape, dtype, device, src: int, group, tag: int = 0
+         ) -> torch.Tensor:
+    """Receive a tensor of `shape` and `dtype` from GLOBAL rank `src`, onto
+    `device`."""
+    dev = torch.device(device)
+    with _clock(dev, group):
+        if dev.type != "cuda" or not _gloo(group):
+            buf = torch.empty(shape, dtype=dtype, device=dev)
+            dist.recv(buf, src=src, group=group, tag=tag)
+            return buf
+        h = torch.empty(shape, dtype=dtype, pin_memory=True)
+        dist.recv(h, src=src, group=group, tag=tag)
+        return _to_device(h, dev)
+
+
+class AllGather(torch.autograd.Function):
+    """forward: the group's shards concatenated along `dim`; backward: the
+    gradient reduce-scattered (summed over the group) back to the shard."""
+
+    @staticmethod
+    def forward(ctx, shard, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(shard, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter(grad, ctx.group, ctx.dim), None, None

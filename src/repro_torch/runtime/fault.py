@@ -4,8 +4,8 @@ checkpointing and restart, after the reference package's runtime/fault.py.
 Single-process simulation discipline: every mechanism is driven through the
 same interfaces a multi-host deployment would use (per-host step timings fed
 to the watchdog, SIGTERM -> checkpoint, restore), so the logic is testable
-on one process. Restoring onto another mesh waits for the parallel layer
-(ROADMAP A8).
+on one process. On a mesh the manager saves and restores each rank's
+shards through the checkpoint's gather and slice.
 """
 from __future__ import annotations
 
@@ -58,10 +58,11 @@ class CheckpointManager:
     """Periodic + on-demand checkpointing with async writes and auto-resume."""
 
     def __init__(self, ckpt_dir: str, interval: int = 100,
-                 async_: bool = True):
+                 async_: bool = True, mesh=None, spec_tree=None):
         self.dir = ckpt_dir
         self.interval = interval
         self.async_ = async_
+        self.mesh, self.spec_tree = mesh, spec_tree
         self._pending = None
 
     def maybe_save(self, step: int, tree, extra=None, force: bool = False):
@@ -69,7 +70,8 @@ class CheckpointManager:
             return
         self.wait()
         self._pending = CK.save(self.dir, step, tree, extra=extra,
-                                async_=self.async_)
+                                async_=self.async_, mesh=self.mesh,
+                                spec_tree=self.spec_tree)
 
     def wait(self):
         if self._pending is not None:
@@ -80,7 +82,10 @@ class CheckpointManager:
         return CK.latest_step(self.dir)
 
     def restore(self, target_tree, step=None, device="cuda"):
-        return CK.restore(self.dir, target_tree, step=step, device=device)
+        """The checkpoint restored onto this manager's mesh: each rank's
+        slices under its spec_tree (the whole tree without a mesh)."""
+        return CK.restore(self.dir, target_tree, step=step, device=device,
+                          mesh=self.mesh, spec_tree=self.spec_tree)
 
 
 class PreemptionGuard:

@@ -5,10 +5,24 @@ after the reference package's runtime/schedule.py.
   scan          — microbatch accumulation (the plan's transient-shrinking
                   knob): a Python loop over the microbatches with an f32
                   gradient accumulator, divided by their number.
-  pipeline_1f1b — the pipe-axis runtime: needs the parallel layer, which is
-                  not ported yet (ROADMAP A8); asking for it raises.
+  pipeline_1f1b — the pipe-axis runtime: the stacked unit layers are split
+                  into mesh.shape["pipe"] contiguous stages, one a rank,
+                  and driven through parallel.pipeline.pipeline_1f1b; the
+                  embedding runs on the first stage, the tail, final norm,
+                  head and loss on the last. Each stage keeps at most its
+                  in-flight boundary carries (stage bodies run again in the
+                  backward), the in-flight transient core.predictor
+                  assumes for pipe > 1.
 
-`make_train_step(cfg, tcfg, schedule="auto")` dispatches; the
+On a mesh of more than one rank (`launch.mesh.Mesh`) the params are this
+rank's shards under `spec_tree`: weights split over "data" are gathered
+where they are used (FSDP, parallel.sharding.Gatherer) and their
+gradients reduce-scattered; every rank reads the same global batch and
+keeps its rows of each microbatch; the gradient is the mean over the data
+axes, and the leaves a stage shares with the others (embedding, final
+norm, head) take the sum of the stages' gradients, so they stay equal.
+
+`make_train_step(cfg, tcfg, mesh=..., schedule="auto")` dispatches; the
 `runtime.train_step.make_train_step(cfg, tcfg)` facade delegates here.
 """
 from __future__ import annotations
@@ -18,34 +32,55 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import TRAIN, ModelConfig
+from repro_torch.models import layers
+from repro_torch.models import model as M
+from repro_torch.models.layers import cross_entropy
 from repro_torch.optim import optimizers as opt
 from repro_torch.optim.compress import compress_roundtrip
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.parallel import comm
+from repro_torch.parallel import pipeline as PPL
+from repro_torch.parallel import sharding as S
 from repro_torch.runtime.schedule_kinds import (  # noqa: F401 — re-exported vocabulary
     SCHEDULE_PIPELINE, SCHEDULE_SCAN, SCHEDULE_SINGLE, SCHEDULES,
     pipeline_problems, schedule_kind)
-from repro_torch.runtime.train_step import (TrainStepConfig, make_loss_fn,
-                                            value_and_grad)
+from repro_torch.runtime.train_step import (TrainStepConfig, _trainable,
+                                            grads_like, make_loss_fn,
+                                            remat_wrapper, value_and_grad)
 from repro_torch.tree import tree_leaves, tree_map
 
-PIPELINE_SLICE = ("the 1F1B pipeline schedule needs the parallel layer "
-                  "(meshes, stages, collectives): ROADMAP A8")
+DATA_AXES = ("pod", "data")
+
+TENSOR_PARALLEL = ("a model axis above 1 (tensor parallelism, expert "
+                   "parallelism, kv_shard='seq') is not ported: ROADMAP "
+                   "queue A item 5")
+
+
+def _shape_of(mesh):
+    return dict(getattr(mesh, "shape", mesh))
 
 
 def pipe_size_of(mesh) -> int:
-    """Pipeline-stage count of a {axis: size} dict (1 = none)."""
+    """Pipeline-stage count of a Mesh or {axis: size} dict (1 = none)."""
     if mesh is None:
         return 1
-    return int(dict(mesh).get("pipe", 1))
+    return int(_shape_of(mesh).get("pipe", 1))
 
 
 def validate_pipeline(cfg: ModelConfig, tcfg: TrainStepConfig, mesh) -> int:
-    raise NotImplementedError(PIPELINE_SLICE)
-
-
-def make_pipeline_loss_fn(cfg: ModelConfig, tcfg: TrainStepConfig, mesh,
-                          axis: str = "pipe"):
-    raise NotImplementedError(PIPELINE_SLICE)
+    """Check (cfg, tcfg, mesh) is executable by the 1F1B schedule; returns
+    the stage count. One predicate (schedule_kinds.pipeline_problems) is
+    shared with the search space and the predictor, so a planned candidate
+    is exactly a runnable one."""
+    pipe = pipe_size_of(mesh)
+    problems = []
+    if pipe <= 1:
+        problems.append("mesh has no pipe axis of size > 1")
+    problems += pipeline_problems(cfg, tcfg.microbatches, _shape_of(mesh))
+    if problems:
+        raise ValueError("pipeline_1f1b schedule not executable: "
+                         + "; ".join(problems))
+    return pipe
 
 
 def fallback_schedule(cfg: ModelConfig, tcfg: TrainStepConfig, mesh,
@@ -54,11 +89,168 @@ def fallback_schedule(cfg: ModelConfig, tcfg: TrainStepConfig, mesh,
     (cfg, tcfg, mesh) is executable, else scan/single on the same mesh."""
     kind = schedule_kind(TRAIN, tcfg.microbatches, pipe_size_of(mesh))
     if kind == SCHEDULE_PIPELINE:
-        if pipeline_problems(cfg, tcfg.microbatches, dict(mesh),
+        if pipeline_problems(cfg, tcfg.microbatches, _shape_of(mesh),
                              global_batch):
             return (SCHEDULE_SCAN if tcfg.microbatches > 1
                     else SCHEDULE_SINGLE)
     return kind
+
+
+# ---------------------------------------------------------------------------
+# Meshes: rows, gradient and metric reductions
+# ---------------------------------------------------------------------------
+
+def _live_axes(mesh, names):
+    return [a for a in names if mesh.axis_size(a) > 1]
+
+
+def data_parallel(mesh) -> int:
+    n = 1
+    for a in _live_axes(mesh, DATA_AXES):
+        n *= mesh.shape[a]
+    return n
+
+
+def data_rows(batch, mesh, n_micro: int):
+    """This rank's rows of the global batch: of each of the n_micro
+    microbatches (contiguous row ranges, in order) its data-axes share, in
+    microbatch order, so a local split into n_micro equal parts gives its
+    share of each global microbatch."""
+    dp = data_parallel(mesh)
+    b = batch["tokens"].shape[0]
+    if b % n_micro:
+        raise ValueError(f"global batch {b} not divisible by "
+                         f"microbatches={n_micro}")
+    mb = b // n_micro
+    if mb % dp:
+        raise ValueError(
+            f"per-microbatch batch {mb} not divisible by the data axes "
+            f"(dp={dp}): each microbatch's rows split over them; lower "
+            "microbatches or the data axis")
+    if dp == 1:
+        return batch
+    d = 0
+    for a in _live_axes(mesh, DATA_AXES):
+        d = d * mesh.shape[a] + mesh.coords[a]
+    n = mb // dp
+    rows = torch.cat([torch.arange(i * mb + d * n, i * mb + (d + 1) * n)
+                      for i in range(n_micro)])
+    return {k: v[rows.to(v.device)] for k, v in batch.items()}
+
+
+def sync_grads(grads, spec_tree, mesh):
+    """IN PLACE: each leaf's gradient summed over the data and pipe axes
+    that do not shard it (a leaf split over "data" had its sum in the
+    gather's reduce-scatter), then divided by the data-parallel degree:
+    the mean over the data ranks' losses, and for a leaf every stage holds,
+    the sum of the stages' parts."""
+    axes = _live_axes(mesh, DATA_AXES + ("pipe",))
+    dp = data_parallel(mesh)
+
+    def one(g, spec):
+        for a in axes:
+            if a not in spec.axes():
+                g.copy_(comm.all_reduce(g, mesh.groups[a]))
+        if dp > 1:
+            g.div_(dp)
+        return g
+
+    return tree_map(one, grads, spec_tree)
+
+
+def mean_metrics(metrics, mesh):
+    """Each metric's mean over the data ranks."""
+    axes = _live_axes(mesh, DATA_AXES)
+    if not axes:
+        return metrics
+    keys = list(metrics)
+    v = torch.stack([metrics[k].to(torch.float32) for k in keys])
+    for a in axes:
+        v = comm.all_reduce(v, mesh.groups[a])
+    v = v / data_parallel(mesh)
+    return {k: v[i] for i, k in enumerate(keys)}
+
+
+def fsdp_axes(mesh):
+    """The axes a rank gathers weights over: every mesh axis but "pipe"
+    (a stage keeps its own layers)."""
+    return [a for a in mesh.axis_names if a != "pipe"]
+
+
+# ---------------------------------------------------------------------------
+# The 1F1B pipeline loss
+# ---------------------------------------------------------------------------
+
+def make_pipeline_loss_fn(cfg: ModelConfig, tcfg: TrainStepConfig, mesh,
+                          spec_tree, axis: str = "pipe"):
+    """fn(params, batch) -> ((total, metrics), grads) whose forward runs
+    the unit stack as a 1F1B pipeline over mesh axis `axis`. `params` are
+    this rank's shards under `spec_tree`, `batch` the global batch (the
+    same on every rank). The embedding runs on the first stage; the tail,
+    final norm, head and loss on the last. Because 1F1B runs a
+    microbatch's backward before later microbatches' forwards, the
+    function computes the gradients itself: `grads` are this rank's
+    shards' gradients of the total, reduced over the mesh (sync_grads),
+    and total and metrics are every rank's."""
+    n_stages = validate_pipeline(cfg, tcfg, mesh)
+    n_micro = tcfg.microbatches
+    settings = tcfg.settings
+    remat = remat_wrapper(tcfg.remat)
+    gat = S.Gatherer(spec_tree, mesh, fsdp_axes(mesh))
+    wrapper = gat.unit_wrapper(None if tcfg.remat == "none" else remat)
+    head_keys = [k for k in spec_tree if k not in ("units", "embed")]
+    if cfg.tie_embeddings:
+        head_keys.append("embed")
+
+    def fn(params, batch):
+        local = data_rows(batch, mesh, n_micro)
+        tokens, targets = local["tokens"], local["targets"]
+        mb, s = tokens.shape[0] // n_micro, tokens.shape[1]
+        tree, leaves = _trainable(params)
+        pos = torch.arange(s, dtype=torch.int32,
+                           device=tokens.device)[None].expand(mb, s)
+        stage_dtype = layers.torch_dtype(cfg.param_dtype)
+        sums = torch.zeros(4, dtype=torch.float32, device=tokens.device)
+
+        def first(i, grad):
+            with torch.set_grad_enabled(grad):
+                table = gat.gather(tree["embed"], spec_tree["embed"])
+                return layers.embed_lookup(table, cfg,
+                                           tokens[i * mb:(i + 1) * mb])
+
+        def stage(units, x):
+            return M.unit_stack_forward(units, cfg, x, pos,
+                                        settings=settings, context=s,
+                                        unit_wrapper=wrapper)[0]
+
+        def last(i, y):
+            with gat.saving() as gather:
+                rest = gather({k: tree[k] for k in head_keys},
+                              {k: spec_tree[k] for k in head_keys})
+                logits, aux = M.tail_head_forward(
+                    dict(rest), cfg, y, pos, settings=settings, context=s)
+            loss = cross_entropy(logits, targets[i * mb:(i + 1) * mb])
+            total = (loss + tcfg.lb_coef * aux["lb_loss"]
+                     + tcfg.z_coef * aux["z_loss"])
+            sums.add_(torch.stack([total, loss, aux["lb_loss"],
+                                   aux["z_loss"]]).detach())
+            return [total / n_micro], None
+
+        PPL.pipeline_1f1b(stage, tree["units"], n_micro, mesh=mesh,
+                          axis=axis,
+                          carry=((mb, s, cfg.d_model), stage_dtype,
+                                 tokens.device),
+                          first=first, last=last)
+        grads = grads_like(params, leaves, [t.grad for t in leaves])
+        sync_grads(grads, spec_tree, mesh)
+        out = comm.broadcast(sums / n_micro, mesh.groups[axis],
+                             mesh.rank_at(**{axis: n_stages - 1}))
+        m = mean_metrics({"total": out[0], "loss": out[1],
+                          "lb_loss": out[2], "z_loss": out[3]}, mesh)
+        total = m.pop("total")
+        return (total, m), grads
+
+    return fn
 
 
 # ---------------------------------------------------------------------------
@@ -101,30 +293,54 @@ def _scan_accum(grad_fn, n_micro: int):
 # ---------------------------------------------------------------------------
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainStepConfig, *,
-                    mesh=None, schedule: str = "auto"):
+                    mesh=None, schedule: str = "auto", spec_tree=None):
     """Returns train_step(params, opt_state, batch, step) -> (params,
     opt_state, metrics): params and opt_state are updated IN PLACE and
     returned; metrics maps "loss", "lb_loss", "z_loss", "grad_norm" and
     "lr" to 0-d f32 tensors.
 
-    schedule: "auto" resolves from tcfg.microbatches (and a mesh's pipe
-    axis); or one of SCHEDULES explicitly. The chosen kind is exposed as
+    schedule: "auto" resolves from tcfg.microbatches and the mesh's pipe
+    axis; or one of SCHEDULES explicitly. The chosen kind is exposed as
     `train_step.schedule`. The scan schedule's gradients are the f32
     accumulator (as the reference's), so the update reads f32 gradients
-    there and the parameters' dtype under the single schedule."""
+    there and the parameters' dtype under the single schedule.
+
+    On a `launch.mesh.Mesh` of more than one rank, params and opt_state
+    are this rank's shards under `spec_tree` (sharding.param_specs;
+    required there), `batch` the global batch. The pipeline schedule
+    needs such a mesh."""
     if schedule == "auto":
         schedule = schedule_kind(TRAIN, tcfg.microbatches, pipe_size_of(mesh))
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r}; known: {SCHEDULES}")
+    sharded = mesh is not None and getattr(mesh, "size", 1) > 1
+    if schedule == SCHEDULE_PIPELINE and not (sharded and mesh.groups):
+        raise ValueError("pipeline_1f1b schedule needs a mesh of ranks "
+                         "(launch.mesh.Mesh)")
+    if sharded:
+        if mesh.axis_size("model") > 1:
+            raise NotImplementedError(TENSOR_PARALLEL)
+        if spec_tree is None:
+            raise ValueError("a mesh of more than one rank needs the "
+                             "params' spec_tree")
     if schedule == SCHEDULE_PIPELINE:
-        raise NotImplementedError(PIPELINE_SLICE)
-    grad_fn = value_and_grad(make_loss_fn(cfg, tcfg))
-    if schedule == SCHEDULE_SCAN:
-        if tcfg.microbatches <= 1:
-            raise ValueError("scan schedule needs microbatches > 1")
-        compute_grads = _scan_accum(grad_fn, tcfg.microbatches)
+        compute_grads = _single_shot(make_pipeline_loss_fn(cfg, tcfg, mesh,
+                                                           spec_tree))
     else:
-        compute_grads = _single_shot(grad_fn)
+        gat = (S.Gatherer(spec_tree, mesh, fsdp_axes(mesh)) if sharded
+               else None)
+        grad_fn = value_and_grad(make_loss_fn(cfg, tcfg, gat))
+        if schedule == SCHEDULE_SCAN:
+            if tcfg.microbatches <= 1:
+                raise ValueError("scan schedule needs microbatches > 1")
+            compute_grads = _scan_accum(grad_fn, tcfg.microbatches)
+        else:
+            compute_grads = _single_shot(grad_fn)
+        if sharded:
+            compute_grads = _on_mesh(compute_grads, mesh, spec_tree,
+                                     tcfg.microbatches)
+    if not sharded:
+        spec_tree = None
 
     def train_step(params, opt_state, batch, step):
         grads, metrics = compute_grads(params, batch)
@@ -133,11 +349,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainStepConfig, *,
             gen = torch.Generator(device=dev).manual_seed(
                 (17 << 32) + int(step))
             grads = compress_roundtrip(grads, gen)
-        grads, gnorm = opt.clip_by_global_norm(grads, tcfg.max_grad_norm)
+        grads, gnorm = opt.clip_by_global_norm(grads, tcfg.max_grad_norm,
+                                               spec_tree, mesh)
         lr = warmup_cosine(int(step), tcfg.optimizer.lr, tcfg.warmup_steps,
                            tcfg.total_steps)
         params, opt_state = opt.apply_updates(tcfg.optimizer, params, grads,
-                                              opt_state, lr)
+                                              opt_state, lr, spec_tree, mesh)
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm
         metrics["lr"] = lr
@@ -145,3 +362,15 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainStepConfig, *,
 
     train_step.schedule = schedule
     return train_step
+
+
+def _on_mesh(compute_grads, mesh, spec_tree, n_micro):
+    """A single / scan schedule on a mesh: this rank's rows of the global
+    batch in, its shards' gradients reduced over the mesh and the metrics'
+    data mean out."""
+    def compute(params, batch):
+        grads, metrics = compute_grads(params, data_rows(batch, mesh,
+                                                          n_micro))
+        return sync_grads(grads, spec_tree, mesh), mean_metrics(metrics,
+                                                                mesh)
+    return compute

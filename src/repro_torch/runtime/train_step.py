@@ -19,6 +19,7 @@ params' layout at the end.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Callable
@@ -79,19 +80,31 @@ class TrainStepConfig:
     compress_grads: bool = False    # int8 round-trip on accumulated grads
 
 
-def make_loss_fn(cfg: ModelConfig, tcfg: TrainStepConfig):
+def make_loss_fn(cfg: ModelConfig, tcfg: TrainStepConfig, gatherer=None):
     """loss_fn(params, batch) -> (total loss, {"loss", "lb_loss", "z_loss"}),
     differentiable with respect to the leaves of `params` that require a
     gradient. batch: {"tokens", "targets"} int tensors [b, s] on the params'
     device and, for the modality-stub archs, "prefix_embeds" [b, p, d]; the
     logits of the first cfg.n_prefix_embeds positions are dropped. The
-    total adds lb_coef x lb_loss + z_coef x z_loss (the MoE aux losses)."""
+    total adds lb_coef x lb_loss + z_coef x z_loss (the MoE aux losses).
+
+    With a `gatherer` (parallel.sharding.Gatherer) `params` holds this
+    rank's shards: the non-unit leaves are gathered as the forward starts,
+    each unit repeat's as it runs."""
     wrapper = remat_wrapper(tcfg.remat)
+    if gatherer is not None:
+        wrapper = gatherer.unit_wrapper(
+            None if tcfg.remat == "none" else wrapper)
 
     def loss_fn(params, batch):
-        logits, _, aux = M.apply(params, cfg, batch["tokens"],
-                                 prefix_embeds=batch.get("prefix_embeds"),
-                                 settings=tcfg.settings, unit_wrapper=wrapper)
+        with (gatherer.saving() if gatherer is not None
+              else contextlib.nullcontext()) as gather:
+            if gatherer is not None:
+                params = gatherer.outer(params, gather)
+            logits, _, aux = M.apply(params, cfg, batch["tokens"],
+                                     prefix_embeds=batch.get("prefix_embeds"),
+                                     settings=tcfg.settings,
+                                     unit_wrapper=wrapper)
         if cfg.n_prefix_embeds:
             logits = logits[:, cfg.n_prefix_embeds:]
         loss = cross_entropy(logits, batch["targets"])
@@ -125,6 +138,24 @@ def _trainable(params):
     return tree, leaves
 
 
+def grads_like(params, leaves, gl):
+    """The gradients `gl` of the autograd leaves `leaves` (from
+    _trainable(params)) in the params' layout and dtypes; None gives
+    zeros."""
+    gl, n = list(gl), iter(range(len(leaves)))
+
+    def take(_):
+        i = next(n)
+        g, gl[i] = gl[i], None       # let each go once it is placed
+        return torch.zeros_like(leaves[i]) if g is None else g
+
+    def take_stacked(t):
+        return torch.stack([take(s) for s in t.unbind(0)])
+
+    return {k: tree_map(take_stacked if k == "units" else take, v)
+            for k, v in params.items()}
+
+
 def value_and_grad(loss_fn):
     """fn(params, batch) -> ((total, metrics), grads): grads in the params'
     layout and dtypes (new tensors; a leaf the loss does not reach gets
@@ -135,19 +166,7 @@ def value_and_grad(loss_fn):
         with torch.enable_grad():
             total, metrics = loss_fn(tree, batch)
             gl = torch.autograd.grad(total, leaves, allow_unused=True)
-        gl, n = list(gl), iter(range(len(leaves)))
-
-        def take(_):
-            i = next(n)
-            g, gl[i] = gl[i], None       # let each go once it is placed
-            return torch.zeros_like(leaves[i]) if g is None else g
-
-        def take_stacked(t):
-            return torch.stack([take(s) for s in t.unbind(0)])
-
-        grads = {k: tree_map(take_stacked if k == "units" else take, v)
-                 for k, v in params.items()}
-        return (total.detach(), metrics), grads
+        return (total.detach(), metrics), grads_like(params, leaves, gl)
 
     return fn
 

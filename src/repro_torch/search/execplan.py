@@ -11,9 +11,9 @@ execute; an `ExecutionPlan` closes that loop:
   ep         — the resolved expert-parallel mode (strategy-level knob)
   schedule   — the runtime schedule kind (single | scan | pipeline_1f1b)
 
-`build(devices)` turns it into the (mesh, sharding.Strategy) pair a driver
-runs: on one device there is no mesh (None); a mesh of more devices needs
-the parallel layer (ROADMAP queue A item 5). `plan_execution` is the
+`build(world)` turns it into the (mesh, sharding.Strategy) pair a trainer
+runs: on one device there is no mesh (None); a mesh of more devices is a
+`launch.mesh.Mesh` over the live process group. `plan_execution` is the
 one-call `--mesh auto` entry: search a runnable mesh_space, promote the
 winner.
 
@@ -78,17 +78,17 @@ class ExecutionPlan:
         return S.Strategy(kv_shard=self.plan.kv_shard, ep=self.ep,
                           pipeline=self.pipe > 1)
 
-    def build(self, devices: Optional[Sequence] = None):
-        """The planned mesh over the first n_devices of `devices` and the
-        matching sharding Strategy: (None, strategy) on one device, which
-        runs unsharded. A mesh of more devices raises: device meshes need
-        the parallel layer (ROADMAP queue A item 5)."""
-        if self.n_devices != 1:
-            raise NotImplementedError(
-                f"ExecutionPlan.build: a mesh of {self.n_devices} devices "
-                f"({self.describe()}) needs the parallel layer, which is not "
-                "ported (ROADMAP queue A item 5)")
-        return None, self.strategy()
+    def build(self, world: Optional[int] = None):
+        """The planned mesh over the first n_devices ranks of the world
+        (default: the live process group's size) and the matching
+        sharding Strategy: (None, strategy) on one device, which runs
+        unsharded. Raises ValueError when the plan needs more ranks than
+        the world has (launch.mesh, imported here: search/* loads without
+        torch)."""
+        if self.n_devices == 1:
+            return None, self.strategy()
+        from repro_torch.launch.mesh import build_mesh
+        return build_mesh(self.mesh_shape, world), self.strategy()
 
 
 def from_search_result(cfg: ModelConfig, shape: ShapeConfig,

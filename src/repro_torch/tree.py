@@ -1,9 +1,14 @@
 """Trees of tensors: nested dicts and lists, as the parameter, optimizer
 state and cache trees of this package are (the reference package's pytrees).
-Dicts are walked in their own key order, lists in order."""
+Dicts are walked in their own key order, lists and tuples in order; a
+tuple subclass (a partition spec, `parallel.axes.Spec`) is a leaf."""
 from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
+
+
+def _seq(x) -> bool:
+    return isinstance(x, list) or type(x) is tuple
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -12,7 +17,7 @@ def tree_map(fn: Callable, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
+    if _seq(tree):
         return [tree_map(fn, v, *(r[i] for r in rest))
                 for i, v in enumerate(tree)]
     return fn(tree, *rest)
@@ -30,7 +35,7 @@ def tree_paths(tree, prefix: Tuple = ()) -> List[Tuple[Tuple, Any]]:
     if isinstance(tree, dict):
         return [pl for k, v in tree.items()
                 for pl in tree_paths(v, prefix + (k,))]
-    if isinstance(tree, (list, tuple)):
+    if _seq(tree):
         return [pl for i, v in enumerate(tree)
                 for pl in tree_paths(v, prefix + (i,))]
     return [(prefix, tree)]

@@ -1,0 +1,93 @@
+"""The parallel layer on nccl, with one card a rank: comm's collectives
+against the same collectives over gloo, and the training CLI on
+data:2,pipe:2 (FSDP gathers, the 1F1B pipeline's sends, the gradient
+reductions, the mesh checkpoint saved and resumed) against the same runs
+over gloo. Needs two (the collectives) or four (the CLI) CUDA devices and
+skips without them; run on a four-card machine with
+
+    PYTHONPATH=src python -m pytest -q -s --noconftest -m cuda \
+        tests/test_torch_nccl.py
+
+This file imports no jax (--noconftest skips tests/conftest.py, which
+imports it): it compares the port with itself."""
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.launch import mesh as LM
+
+import _torch_mesh_ranks as R
+
+pytestmark = pytest.mark.cuda
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CLI = ("--arch h2o-danube-1.8b --reduced --depth 4 --seq 256 --batch 8 "
+       "--log-every 1 --remat none --microbatches 2 --optimizer adamw_f32 "
+       "--device cuda --mesh data:2,pipe:2")
+TIMEOUT = 300
+
+
+def _cards(n):
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < n:
+        pytest.skip(f"needs {n} CUDA devices, {have} visible")
+
+
+def test_nccl_collectives_equal_gloo_on_each_card():
+    _cards(2)
+    world = 4 if torch.cuda.device_count() >= 4 else 2
+    out = LM.spawn_ranks(R.nccl_vs_gloo, world, "nccl", "cuda",
+                         timeout=120)
+    assert [r["device"] for r in out] == [f"cuda:{i}" for i in range(world)]
+    for r in out:
+        print(f"nccl_vs_gloo {r}")
+        assert all(r["equal"]) and len(r["equal"]) == 9
+        assert r["on_card"]
+        assert r["staged"]["nccl"] == 0 and r["staged"]["gloo"] > 0
+
+
+def _train(backend, steps, ckpt=None):
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *CLI.split(),
+           "--steps", str(steps), "--dist-backend", backend]
+    if ckpt:
+        cmd += ["--ckpt-dir", ckpt, "--ckpt-interval", "0"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=TIMEOUT)
+    print(f"--- {backend}, {steps} steps\n{out.stdout}")
+    assert out.returncode == 0, out.stderr[-4000:]
+    losses = {int(s): float(v) for s, v in re.findall(
+        r"^step +(\d+) loss=([0-9.]+)", out.stdout, re.M)}
+    ranks = re.findall(r"^rank (\d): param elements ([0-9,]+);", out.stdout,
+                       re.M)
+    return out.stdout, losses, ranks
+
+
+def test_nccl_mesh_trains_and_resumes_as_gloo(tmp_path):
+    """3 steps on nccl saving a checkpoint, then a fourth step resumed from
+    it, on nccl and on gloo: the same losses as 3 steps on gloo and the
+    same resumed step (the learning-rate schedule spans --steps, so a
+    resumed run is held to a resumed run)."""
+    _cards(4)
+    ck = str(tmp_path / "nccl")
+    _, want, ranks_g = _train("gloo", 3)
+    text, got, ranks_n = _train("nccl", 3, ck)
+    assert "schedule=pipeline_1f1b" in text
+    assert "collectives not timed (nccl)" in text
+    assert re.findall(r"staged through the host (\d+) B", text) == ["0"] * 4
+    assert ranks_n == ranks_g and len(ranks_n) == 4
+    shutil.copytree(ck, str(tmp_path / "gloo"))
+    text_g, step_g, _ = _train("gloo", 4, str(tmp_path / "gloo"))
+    text_n, step_n, _ = _train("nccl", 4, ck)
+    assert "resumed from step 3" in text_g and "resumed from step 3" in text_n
+    assert sorted(got) == sorted(want) == [0, 1, 2]
+    assert sorted(step_n) == sorted(step_g) == [3]
+    want.update(step_g)
+    got.update(step_n)
+    for s in want:
+        assert got[s] == pytest.approx(want[s], rel=1e-4), (s, got, want)

@@ -23,7 +23,11 @@ PAGED = ["--kv", "paged", "--compact", "--chunk-prefill", "8", "--audit",
 
 
 def _run(module, args, timeout=600):
+    # the reference CLI plans over jax.devices(): a device count another
+    # test's import left in XLA_FLAGS (repro.launch.dryrun sets 512) must
+    # not reach it
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
     return subprocess.run([sys.executable, "-m", module] + args, env=env,
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=timeout)

@@ -278,9 +278,11 @@ def test_naive_backend_trains_through_plain_autograd():
     _assert_tree_close(to_numpy(gk), to_numpy(gn), atol=1e-6, rtol=1e-4)
 
 
-def test_pipeline_schedule_raises_naming_the_parallel_slice():
+def test_pipeline_schedule_needs_a_mesh():
+    """As the reference's make_train_step: the 1F1B schedule without a mesh
+    of ranks is refused (tests/test_torch_pipeline.py runs it on one)."""
     _, ct, _, _ = _setup()
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         TS.make_train_step(ct, TT.TrainStepConfig(), schedule="pipeline_1f1b")
     assert TS.pipe_size_of({"data": 2, "pipe": 4}) == 4
     assert TS.fallback_schedule(ct, TT.TrainStepConfig(microbatches=2),
