@@ -10,6 +10,8 @@
     python3 chip_smoke.py --phases 1,12   # build + the training CLI only
     python3 chip_smoke.py --phases 1,13   # build + MoE and prefix embeds only
     python3 chip_smoke.py --phases 1,14   # build + the parallel layer only
+    python3 chip_smoke.py --phases 1,15   # build + the dry-run, roofline,
+                                          # hillclimb and reports only
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. device: the card's name and power limit, its properties beside the
@@ -174,6 +176,23 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      steps (forward twice under the pipeline's recompute); prints each
      rank's max_memory_allocated against the predictor's figure, the step
      wall and the bytes staged a step.
+ 15. the dry-run, the roofline, the hillclimb and the reports, through
+     their CLIs' main(argv) in process: (a) the simulate sweep, every arch
+     x shape on the 16x16 and 2x16x16 meshes (no cell may fail); (b) four
+     cells one card holds (h2o-danube-1.8b, xlstm-1.3b, recurrentgemma-9b
+     at long_500k; recurrentgemma-9b at decode_32k), each planned at
+     --max-devices 1 by the simulator and confirmed under the plan budget,
+     then `--backend cuda --mesh auto --max-devices 1`: one full-width,
+     full-depth decode step measured on the card by CudaMeasurer (the
+     allocator's peak beside the capacity model's and the simulator's
+     figures) and its roofline counted on the meta device at depth 1 and
+     2 under HW.H100; each cell ok, with a roofline, and the ring decode
+     kernel launched once per attention layer (none on xlstm-1.3b); (c)
+     the hillclimb on h2o-danube-1.8b x train_4k: baseline, remat_dots,
+     remat_full counted (the model's FLOPs at most the counted ones, remat
+     full above the baseline), onehot_embed refused for want of a
+     counterpart; then a --memory baseline on (b)'s first cell; (d)
+     summarize and report_experiments over (b)'s cells.
   then: each kernel timed at the largest shape its path launched it at
   (the paged kernels also at every shape phase 3 launched them at, with
   the launches each shape had and the sum of launches x time)
@@ -183,8 +202,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   256]), beside its plain version, its bound and (flash attention, forward
   and backward; ring decode) the one PyTorch call that computes the same
   function; the flash rows also with their TFLOP/s and share of 989
-  TFLOP/s; one JSON line `kernels`, where the launches of phases 12, 13
-  and 14 are added to the rows of their kernels (`launches_by_phase`).
+  TFLOP/s; one JSON line `kernels`, where the launches of phases 12 to
+  15 are added to the rows of their kernels (`launches_by_phase`).
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -229,7 +248,11 @@ from repro_torch.kernels import (build, decode_attention,  # noqa: E402
                                  mlstm_scan, paged_decode, paged_prefill)
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
+from repro_torch.launch import dryrun as DR  # noqa: E402
+from repro_torch.launch import hillclimb as HC  # noqa: E402
+from repro_torch.launch import report_experiments as REP  # noqa: E402
 from repro_torch.launch import serve as SV  # noqa: E402
+from repro_torch.launch import summarize as SUM  # noqa: E402
 from repro_torch.launch import train as LT  # noqa: E402
 from repro_torch.models import ModelSettings, init_params  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
@@ -245,6 +268,7 @@ from repro_torch.runtime import fault as FT  # noqa: E402
 from repro_torch.runtime import serve_step as SS  # noqa: E402
 from repro_torch.runtime import train_step as TS  # noqa: E402
 from repro_torch.search import execplan as XP  # noqa: E402
+from repro_torch.search import strategies as ST  # noqa: E402
 from repro_torch.serving import (BlockAllocator, Engine, leak_check,  # noqa: E402
                                  synthetic_trace, trace_context)
 from repro_torch.serving import quality as Q  # noqa: E402
@@ -3831,6 +3855,220 @@ def phase_parallel():
     return {"fwd": fwd, "bwd": bwd, "restore": restore, "psum": psum}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the dry-run, the roofline, the hillclimb and the reports
+# ---------------------------------------------------------------------------
+
+# the cells one card holds: the simulator's peak under the plan budget
+# (80 GB / (4/3) - 300 MB) at --max-devices 1
+DR_CELLS = (("h2o-danube-1.8b", "long_500k"), ("xlstm-1.3b", "long_500k"),
+            ("recurrentgemma-9b", "long_500k"),
+            ("recurrentgemma-9b", "decode_32k"))
+HC_VARIANTS = ("baseline", "remat_dots", "remat_full", "onehot_embed")
+HC_MEMORY_CELL = DR_CELLS[0]
+
+
+def in_process(tag, main, argv, quiet=False):
+    """main(argv) in process, its standard output captured (and logged
+    line by line unless `quiet`); launch counters zeroed just before and
+    read just after. Fails the run on a non-zero return, an exit or an
+    exception. Returns (output, launches, wall)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _zero_launches()
+    buf = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+    except SystemExit as e:
+        rc = f"exit {e.code}"
+    except Exception as e:              # noqa: BLE001 — logged, then failed
+        rc = f"{type(e).__name__}: {e}"
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    out = buf.getvalue()
+    if not quiet or rc != 0:
+        for line in out.splitlines():
+            log(f"[15{tag}] | {line}")
+    if rc not in (0, None):
+        fail(f"phase 15({tag}): {main.__module__}.main returned {rc}")
+    return out, counts, wall
+
+
+def read_cell(d, arch, shape):
+    with open(os.path.join(d, f"{arch}__{shape}.json")) as f:
+        return json.load(f)
+
+
+def n_attention(cfg):
+    return sum(b.is_attn for b in cfg.blocks())
+
+
+def dryrun_sweep(d, kb):
+    """(a): the simulate sweep over every arch x shape on both production
+    meshes."""
+    _, counts, wall = in_process("a", DR.main, [
+        "--backend", "simulate", "--arch", "all", "--shape", "all",
+        "--mesh", "both", "--out", d, "--kb", kb], quiet=True)
+    cells = SUM.load_cells(d)
+    n = {s: sum(c["status"] == s for c in cells.values())
+         for s in ("ok", "skipped", "failed")}
+    log(f"[15a] simulate sweep, every arch x shape on 16x16 and 2x16x16: "
+        f"{n['ok']} ok, {n['skipped']} skipped, {n['failed']} failed of "
+        f"{len(cells)} cells; {wall:.2f}s")
+    if n["failed"] or len(cells) != 40 or any(counts.values()):
+        fail(f"phase 15(a): {n} of {len(cells)} cells, launches {counts}")
+    return {"n": n, "wall": wall}
+
+
+def dryrun_card(d_sim, d_card, kb):
+    """(b): the four cells planned at --max-devices 1 by the simulator,
+    each confirmed to fit one card, then measured on it (--backend cuda)
+    with the roofline counted on the meta device."""
+    budget = ST.plan_budget(HW.H100)
+    left = torch.cuda.memory_allocated()
+    log(f"[15b] allocated before the cells: {left} B")
+    rows = []
+    for arch, shape in DR_CELLS:
+        cell_argv = ["--mesh", "auto", "--max-devices", "1", "--arch", arch,
+                     "--shape", shape, "--kb", kb]
+        in_process("b", DR.main, ["--backend", "simulate", "--out", d_sim]
+                   + cell_argv, quiet=True)
+        sim = read_cell(d_sim, arch, shape)
+        peak = sim["mesh_planned"]["peak_static_bytes"]
+        if sim["status"] != "ok" or peak > budget:
+            fail(f"phase 15(b): {arch} x {shape}: the planner's cell "
+                 f"{sim['status']}, simulated peak {peak} B over the plan "
+                 f"budget {budget:.0f} B")
+        _, counts, wall = in_process("b", DR.main, [
+            "--backend", "cuda", "--out", d_card] + cell_argv)
+        c = read_cell(d_card, arch, shape)
+        e, r = c.get("mesh_planned", {}), c.get("roofline", {})
+        cfg = get_config(arch)
+        want = {"decode_attention": n_attention(cfg)}
+        if (c["status"] != "ok" or c.get("backend") != "cuda"
+                or e.get("n_devices") != 1
+                or e.get("max_memory_allocated", 0) <= 0
+                or "error" in r or r.get("flops_per_chip", 0) <= 0
+                or r.get("hw") != HW.H100.name):
+            fail(f"phase 15(b): {arch} x {shape}: status {c['status']}, "
+                 f"backend {c.get('backend')}, mesh entry {e}, roofline {r}")
+        if counts != {k: want.get(k, 0) for k in counts}:
+            fail(f"phase 15(b): {arch} x {shape}: launches {counts}, want "
+                 f"{want} (one measured decode step)")
+        with open(kb) as f:
+            k = json.load(f)[f"{cfg.name}::{c['kind']}"]
+        p = c["execution_plan"]
+        log(f"[15b] {arch} x {shape}: class {k['category']} (alpha "
+            f"{k['alpha']!r}); plan mesh={p['mesh']} schedule="
+            f"{p['schedule']} {p['plan']} policy={p['policy']}; simulated "
+            f"peak {peak} B (budget {budget:.0f}); on the card "
+            f"max_memory_allocated {e['max_memory_allocated']} B, "
+            f"predicted {e['predicted_bytes']:.0f} B (measured / predicted "
+            f"{e['measured_over_predicted']!r}), simulated "
+            f"{e['simulated_peak_bytes']:.0f} B (measured / simulated "
+            f"{e['measured_over_simulated']!r}); roofline under HW.H100 "
+            f"(computed from the counts) t_comp {r['t_comp']!r} s, t_mem "
+            f"{r['t_mem']!r} s (analytic {r['t_mem_analytic']!r}), t_coll "
+            f"{r['t_coll']!r} s, bottleneck {r['bottleneck']}, "
+            f"flops {r['flops_per_chip']!r}, bytes {r['bytes_per_chip']!r}, "
+            f"MODEL/counted {r['useful_flops_ratio']!r}, counted in "
+            f"{r['analysis_s']}s; launches {counts}; {wall:.2f}s")
+        rows.append({"arch": arch, "shape": shape, "wall": wall,
+                     "launches": counts["decode_attention"]})
+    return rows
+
+
+def hillclimb_card(d):
+    """(c): four variants of h2o-danube-1.8b x train_4k counted (one with
+    no counterpart), then one --memory baseline on a cell of (b)."""
+    out, counts, wall = in_process("c", HC.main, [
+        "--arch", TR_ARCH, "--shape", "train_4k", "--variants",
+        ",".join(HC_VARIANTS), "--out", d])
+    with open(os.path.join(d, f"{TR_ARCH}__train_4k.json")) as f:
+        res = json.load(f)
+    refused = re.search(r"^onehot_embed +FAILED: no counterpart on one "
+                        r"card: embed_onehot$", out, re.M)
+    if refused is None or sorted(res) != sorted(HC_VARIANTS[:3]) or \
+            any(counts.values()):
+        fail(f"phase 15(c): results {sorted(res)}, the one-hot line "
+             f"{refused is not None}, launches {counts}")
+    base, full = res["baseline"], res["remat_full"]
+    # the counter sees every product of the step: forward, backward
+    # (twice the forward's products) and remat's recompute, so the model's
+    # 6·N·D (+ attention) is at most what it counts
+    if any(r["flops_per_chip"] <= 0 or r["useful_flops_ratio"] > 1.0
+           for r in res.values()) or full["t_comp"] <= base["t_comp"]:
+        fail("phase 15(c): counted " + ", ".join(
+            f"{n} {r['flops_per_chip']!r} FLOPs, MODEL/counted "
+            f"{r['useful_flops_ratio']!r}" for n, r in res.items()))
+    log(f"[15c] {TR_ARCH} x train_4k counted: " + "; ".join(
+        f"{n} t_comp {r['t_comp']!r} s t_mem {r['t_mem']!r} s "
+        f"MODEL/counted {r['useful_flops_ratio']!r}"
+        for n, r in res.items()) + f"; {wall:.2f}s")
+    arch, shape = HC_MEMORY_CELL
+    _, counts, wall_m = in_process("c", HC.main, [
+        "--arch", arch, "--shape", shape, "--variants", "baseline",
+        "--memory", "--out", d])
+    with open(os.path.join(d, f"{arch}__{shape}.json")) as f:
+        mem = json.load(f)["baseline"]
+    n = n_attention(get_config(arch))
+    if (mem.get("argument_bytes", 0) <= 0
+            or counts != {k: n if k == "decode_attention" else 0
+                          for k in counts}):
+        fail(f"phase 15(c): --memory baseline {mem}, launches {counts}")
+    log(f"[15c] {arch} x {shape} --memory baseline: argument "
+        f"{mem['argument_bytes']} B, transient {mem['temp_bytes']} B, "
+        f"t_comp {mem['t_comp']!r} s; ring decode launches "
+        f"{counts['decode_attention']}; {wall_m:.2f}s")
+    return {"wall": wall + wall_m, "launches": counts["decode_attention"]}
+
+
+def reports(d_card, kb, d_hc):
+    """(d): summarize and report_experiments over (b)'s cells."""
+    summary, _, w1 = in_process("d", SUM.main, d_card)
+    text, _, w2 = in_process("d", REP.main, ["--dryrun", d_card, "--kb", kb,
+                                             "--hillclimb", d_hc])
+    rows = [ln for ln in summary.splitlines()
+            if ln.startswith("| ") and "**" in ln]
+    if (f"{len(DR_CELLS)} ok / 0 skipped / 0 failed" not in summary
+            or len(rows) != len(DR_CELLS) or "v5e" in text
+            or "197e12" in text or torch.cuda.get_device_name(0) not in text):
+        fail(f"phase 15(d): {len(rows)} roofline rows, or the report names "
+             "a TPU or not the card")
+    log(f"[15d] summarize and report_experiments over (b)'s cells: "
+        f"{len(rows)} roofline rows; {w1 + w2:.2f}s")
+
+
+def phase_dryrun():
+    """Phase 15: the dry-run swept by the simulator, four cells measured
+    on the card with their rooflines, the hillclimb, the reports."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    d = {k: os.path.join(tmp, k) for k in ("sweep", "sim", "card", "hc")}
+    kb = os.path.join(tmp, "kb.json")
+    walls = {}
+    try:
+        t0 = time.time()
+        dryrun_sweep(d["sweep"], kb)
+        walls["a"] = time.time() - t0
+        t0 = time.time()
+        cells = dryrun_card(d["sim"], d["card"], kb)
+        walls["b"] = time.time() - t0
+        t0 = time.time()
+        hc = hillclimb_card(d["hc"])
+        walls["c"] = time.time() - t0
+        t0 = time.time()
+        reports(d["card"], kb, d["hc"])
+        walls["d"] = time.time() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("[15] walls " + ", ".join(f"({k}) {v:.2f}s" for k, v in walls.items()))
+    return {"decode_attention": sum(c["launches"] for c in cells)
+            + hc["launches"]}
+
+
 def add_launches(rows, name, phase, n):
     """Adds `n` launches of phase `phase` to the row `name` of the kernels
     line (its `launches` and its `launches_by_phase`)."""
@@ -3842,12 +4080,13 @@ def add_launches(rows, name, phase, n):
     fail(f"no kernels row {name}")
 
 
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15}
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (1 always runs)")
     args = ap.parse_args()
     phases = {int(x) for x in args.phases.split(",")}
@@ -3897,7 +4136,7 @@ def main():
         t0 = time.time()
         phase_cli()
         log(f"[11] phase 11 {time.time() - t0:.2f}s")
-    p12 = p13 = p14 = None
+    p12 = p13 = p14 = p15 = None
     if 12 in phases:
         torch.cuda.empty_cache()
         t0 = time.time()
@@ -3913,15 +4152,21 @@ def main():
         t0 = time.time()
         p14 = phase_parallel()
         log(f"[14] phase 14 {time.time() - t0:.2f}s")
+    if 15 in phases:
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        p15 = phase_dryrun()
+        log(f"[15] phase 15 {time.time() - t0:.2f}s")
     if g3 is not None:
         rows.append(ring_row(g3, rg, errs["decode_attention"]))
         rows.append(slot_prefill_row(g3["cfg"], g3["slot"]["flash"],
                                      errs["flash_attention"]))
     if ALL_PHASES <= phases:
-        # the launches of phases 12, 13 and 14, each counted from zero just
+        # the launches of phases 12 to 15, each counted from zero just
         # before its path and read just after (phase 14: every rank of its
-        # meshes (a)-(c), over its training loop), added to their kernels'
-        # rows
+        # meshes (a)-(c), over its training loop; phase 15: the steps the
+        # dry-run and the hillclimb measured on the card), added to their
+        # kernels' rows
         a, b, c = p13["a"], p13["b"], p13["c"]
         for name, phase, n in (
                 ("flash_attention[train]", "12", p12["fwd"]),
@@ -3936,7 +4181,8 @@ def main():
                 ("flash_attention[greedy]", "13c", c["flash_attention"]),
                 ("decode_attention", "13a", a["decode_attention"]),
                 ("decode_attention", "13b", b["decode_attention"]),
-                ("decode_attention", "13c", c["decode_attention"])):
+                ("decode_attention", "13c", c["decode_attention"]),
+                ("decode_attention", "15", p15["decode_attention"])):
             add_launches(rows, name, phase, n)
     for r in rows:
         lib = ("" if r["library_ms"] is None else

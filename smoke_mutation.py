@@ -8,14 +8,18 @@ output (ops.decode_attention_fwd, B3) scaled by a factor, patched at run
 time. Phase 2 holds the kernel itself at the bf16 tolerance; this shows
 how large an error the end-to-end checks see on their own.
 
-Phase 14 runs the trainer in processes of its own, so each of its faults
-is planted in a copy of this checkout's sources (in a temporary
-directory), where `chip_smoke.py --phases 1,14` then runs: the data
-axes' gradient mean left out of `sync_grads`, and gathered shards
-concatenated in reverse rank order.
+Phases 14 and 15 plant each fault in a copy of this checkout's sources
+(in a temporary directory), where `chip_smoke.py --phases 1,14` (or
+`1,15`) then runs. Phase 14 (the trainer runs in processes of its own):
+the data axes' gradient mean left out of `sync_grads`, and gathered
+shards concatenated in reverse rank order. Phase 15: the step counter
+counting a train step's forward alone (the backward's and the
+optimizer's FLOPs dropped), and the card dry-run measuring with the
+simulator instead of the card.
 
     python3 smoke_mutation.py              # 13(b) at x0.9 and x0.97, 13(a) at x0.9
     python3 smoke_mutation.py --phase 14   # the two parallel-layer faults
+    python3 smoke_mutation.py --phase 15   # the two dry-run faults
 
 Prints, for each case, whether the phase failed (caught) or passed.
 Needs a CUDA device.
@@ -38,10 +42,25 @@ FAULTS_14 = (
     ("gathered shards in reverse order", "src/repro_torch/parallel/comm.py",
      "full.narrow(dim, r * k, k)", "full.narrow(dim, (n - 1 - r) * k, k)"),
 )
+FAULTS_15 = (
+    ("the counter drops the backward's FLOPs",
+     "src/repro_torch/roofline/count.py",
+     "        return lambda: train(params, opt_state, batch, 0)\n",
+     "        return lambda: M.apply(params, cfg, batch[\"tokens\"],\n"
+     "                               settings=settings)\n"),
+    ("the card dry-run measures with the simulator",
+     "src/repro_torch/launch/dryrun.py",
+     "planned_m = MM.CudaMeasurer(eplan.mesh_shape, cache=cache)",
+     "planned_m = MM.SimulatedMeasurer(eplan.mesh_shape, cache=cache)"),
+)
+FAULTS = {14: FAULTS_14, 15: FAULTS_15}
 
 
-def phase14():
-    for name, rel, old, new in FAULTS_14:
+def planted(phase):
+    """Each fault of `phase` in a copy of the sources, where the phase
+    runs after phase 1: whether it failed (caught)."""
+    tag = f"[{phase}"
+    for name, rel, old, new in FAULTS[phase]:
         tmp = tempfile.mkdtemp(prefix="mutation_")
         try:
             shutil.copytree(os.path.join(HERE, "src"), os.path.join(tmp, "src"),
@@ -55,20 +74,20 @@ def phase14():
             with open(path, "w") as f:
                 f.write(text.replace(old, new))
             out = subprocess.run([sys.executable, "chip_smoke.py", "--phases",
-                                  "1,14"], cwd=tmp, capture_output=True,
-                                 text=True)
+                                  f"1,{phase}"], cwd=tmp,
+                                 capture_output=True, text=True)
             for line in out.stdout.splitlines():
-                if line.startswith("[14") and "] |" not in line and \
+                if line.startswith(tag) and "] |" not in line and \
                         "] rank " not in line:
                     print(f"  {line}", flush=True)
             failed = [ln for ln in out.stderr.splitlines() if "FAILED" in ln]
             if out.returncode == 0:
                 verdict = "passed (not caught)"
-            elif any("phase 14" in ln for ln in failed):
+            elif any(f"phase {phase}" in ln for ln in failed):
                 verdict = "failed (caught)"
             else:
                 verdict = f"not reached (exit {out.returncode})"
-            print(f"{name}: phase 14 {verdict}"
+            print(f"{name}: phase {phase} {verdict}"
                   f"{'; ' + failed[-1] if failed else ''}", flush=True)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -76,9 +95,10 @@ def phase14():
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", type=int, choices=(13, 14), default=13)
-    if ap.parse_args().phase == 14:
-        return phase14()
+    ap.add_argument("--phase", type=int, choices=(13, 14, 15), default=13)
+    phase = ap.parse_args().phase
+    if phase in FAULTS:
+        return planted(phase)
     sys.path.insert(0, HERE)
     sys.argv = [os.path.join(HERE, "chip_smoke.py")]
     import torch

@@ -168,13 +168,13 @@ def _cache_from_prefill(k, v, positions, blk: BlockSpec, context: int):
         k_t = F.pad(k_t, (0, 0, 0, 0, 0, pad))
         v_t = F.pad(v_t, (0, 0, 0, 0, 0, pad))
         p_t = F.pad(p_t, (0, pad), value=-1)
-    # Ring layout: slot = pos % L. For contiguous positions that's a roll.
-    shift = int(p_t[0, 0]) % L    # uniform across batch (packed sequences)
-    return {
-        "k": torch.roll(k_t, shift, dims=1),
-        "v": torch.roll(v_t, shift, dims=1),
-        "pos": torch.roll(p_t, shift, dims=1),
-    }
+    # Ring layout: slot = pos % L. For contiguous positions that's a roll
+    # by the first position (uniform across batch: packed sequences), taken
+    # as a gather with the index made on the device: no host sync (and a
+    # step on the meta device, roofline.count, needs none).
+    src = torch.remainder(
+        torch.arange(L, device=p_t.device) - p_t[0, :1].long(), L)
+    return {"k": k_t[:, src], "v": v_t[:, src], "pos": p_t[:, src]}
 
 
 def ring_write(cache, positions, k, v):

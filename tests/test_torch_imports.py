@@ -45,7 +45,11 @@ def test_every_module_imports_without_jax_or_reference_package():
                  "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
                  "repro_torch.launch.train", "repro_torch.tree",
                  "repro_torch.kernels.decode_attention",
-                 "repro_torch.models.moe"):
+                 "repro_torch.models.moe", "repro_torch.roofline.analysis",
+                 "repro_torch.roofline.count", "repro_torch.launch.dryrun",
+                 "repro_torch.launch.hillclimb",
+                 "repro_torch.launch.summarize",
+                 "repro_torch.launch.report_experiments"):
         assert want in names
     code = (
         "import importlib, sys\n"
