@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases 1,14   # build + the parallel layer only
     python3 chip_smoke.py --phases 1,15   # build + the dry-run, roofline,
                                           # hillclimb and reports only
+    python3 chip_smoke.py --phases 1,16   # build + serving on a model axis
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. device: the card's name and power limit, its properties beside the
@@ -193,6 +194,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      full above the baseline), onehot_embed refused for want of a
      counterpart; then a --memory baseline on (b)'s first cell; (d)
      summarize and report_experiments over (b)'s cells.
+ 16. serving on a model axis: the serve CLI in subprocesses on
+     --model-parallel M, its ranks sharing the card over gloo (every
+     collective staged through the host), (d) and (e) at once: (a) mistral-nemo-12b at full width
+     and depth on model:2, paged, --compact, --chunk-prefill 256, blocks
+     of 16, a bf16 pool, simulate planning, 8 requests of 64-1024 prompt
+     and 16-32 generated tokens; (b) the same with an int8 pool and
+     --kv-retain 2 (the attention mass summed over the ranks); (c)
+     --backend cuda on 2 requests: CudaMeasurer over the model axis, every
+     rank's class and plan one, the measured per-rank peak of each
+     planning step beside the simulator's; (d) 8 of mistral-nemo-12b's
+     layers on model:4, 4 requests; (e) gemma3-12b at 12 layers on model:2
+     through the slot engine (ring decode on the local and global rings,
+     flash prefill). Each run writes, for every token, the top 8 logits of
+     the step that emitted it (--tokens-out); then one rank of the same
+     CLI and trace, in process, replays the ranks' tokens (--replay) and
+     logs its own. Fails on a rank's non-zero exit, ranks emitting,
+     scheduling or planning apart, one rank scheduling other block tables
+     (retention's drops) under the same tokens, the two sides' top logits
+     more than TP_DRIFT_BOUND of the spread apart at any token or lacking
+     each other's argmax (where the argmaxes differ, trap T2, both gaps
+     are printed), per-rank parameter elements other than the spec tree's,
+     a pool other than the predictor's per-device blocks, or attention
+     launches other than layers x steps a rank; prints each rank's peak
+     against the plan's prediction and the bytes it staged through the
+     host by kind. Phase 2 holds the four kernels at the ranks' head
+     counts.
   then: each kernel timed at the largest shape its path launched it at
   (the paged kernels also at every shape phase 3 launched them at, with
   the launches each shape had and the sum of launches x time)
@@ -203,7 +230,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   and backward; ring decode) the one PyTorch call that computes the same
   function; the flash rows also with their TFLOP/s and share of 989
   TFLOP/s; one JSON line `kernels`, where the launches of phases 12 to
-  15 are added to the rows of their kernels (`launches_by_phase`).
+  16 are added to the rows of their kernels (`launches_by_phase`).
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -219,6 +246,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1238,6 +1266,43 @@ def phase_kernels():
           ends=[1255, 1224, 3000], **VL)
     r("G12 hd80 (a partial query-row group, a partial lane group)", L=333,
       K=2, G=12, hd=80, ends=[1000, 200])
+    # phase 16's per-rank head counts (its ranks launch every attention
+    # kernel at n_kv_heads / M kv heads, G and hd unchanged; the paged
+    # decode picks its context split from lanes x kv heads, so K 4 and K 2
+    # take other splits than K 8): mistral-nemo-12b on model:2 (K 4) and
+    # model:4 (K 2), blocks of 16, 8 lanes, its 1056-position context,
+    # bf16 and int8 pools, the block mass with retention's holes; the
+    # chunk prefill at 256; the whole-prompt flash prefill; gemma3-12b on
+    # model:2 (K 4, G 2, hd 256): its local and global rings and prefill
+    for K in (4, 2):
+        TP = dict(K=K, G=4, hd=128, bs=16)
+        for codec in ("bf16", "int8"):
+            d(f"tp K{K} w1 ctx1056 mass {codec}", lens=[1056], codec=codec,
+              mass=True, **TP)
+            d(f"tp K{K} w8 mixed mass holes {codec}", codec=codec, mass=True,
+              lens=[1056, 300, 1040, 64, 520, 1024, 80, 700],
+              holes=((0, 3), (2, 7), (5, 1)), **TP)
+            d(f"tp K{K} w4 trimmed table {codec}", codec=codec,
+              lens=[530, 64, 1000, 17], m_blocks=64, **TP)
+            p(f"tp K{K} fresh w4 C256 {codec}", hist=[0, 0, 0, 0],
+              clens=[256, 256, 64, 8], C=256, codec=codec, **TP)
+            p(f"tp K{K} history w8 C256 {codec}",
+              hist=[768, 256, 512, 0, 0, 256, 0, 768],
+              clens=[256, 256, 8, 64, 256, 264 - 256, 200, 256], C=256,
+              codec=codec, **TP)
+        f(f"tp K{K} G4 hd128 prefill w1 s64 bf16", b=1, s=64, K=K, G=4,
+          hd=128)
+        f(f"tp K{K} G4 hd128 prefill w2 s520 ragged bf16", b=2, s=520,
+          lens=[520, 256], K=K, G=4, hd=128)
+    GM4 = dict(GM, K=4)
+    r("tp gemma3 K4 local [4, 1024] window1024 wrapped bf16", L=1024,
+      window=1024, ends=[1223, 63, 1100, 300], **GM4)
+    r("tp gemma3 K4 global [4, 1224] bf16", L=1224, ends=[1223, 63, 1100,
+                                                           300], **GM4)
+    f("tp gemma3 K4 local prefill [1, 1200] window1024 bf16", b=1, s=1200,
+      window=1024, **GM4)
+    f("tp gemma3 K4 global prefill [1, 1200] bf16", b=1, s=1200, **GM4)
+    f("tp gemma3 K4 global prefill [1, 64] bf16", b=1, s=64, **GM4)
     log(f"[2] {n} kernel-vs-plain cases agree on the card: max abs err "
         f"decode {errs['paged_decode']:.3e}, prefill "
         f"{errs['paged_prefill']:.3e}, flash {errs['flash_attention']:.3e} "
@@ -4069,6 +4134,401 @@ def phase_dryrun():
             + hc["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: serving on a model axis (tensor parallelism over ranks)
+# ---------------------------------------------------------------------------
+
+# the seeded trace of (a)-(c): 8 requests, prompts of 64-1024 tokens, 16-32
+# generated; the pool pinned (blocks of 16, 8 lanes) so that one rank and
+# the ranks plan the same pool and run the same schedule
+TP_TRACE = ["--requests", "8", "--prompt-lens", "64,256,520,1024",
+            "--gen-lens", "16,24,32", "--seed", str(SEED + 16),
+            "--max-slots", "8"]
+TP_PAGED = ["--arch", "mistral-nemo-12b", "--kv", "paged", "--compact",
+            "--chunk-prefill", "256", "--kv-block", "16", "--audit",
+            "strict", *TP_TRACE]
+# (d): 8 of mistral-nemo-12b's 40 layers on model:4, 4 requests
+TP_DEEP4 = ["--arch", "mistral-nemo-12b", "--depth", "8", "--kv", "paged",
+            "--compact", "--chunk-prefill", "256", "--kv-block", "16",
+            "--requests", "4", "--prompt-lens", "64,520,1024", "--gen-lens",
+            "16,32", "--seed", str(SEED + 17), "--max-slots", "4"]
+# (e): gemma3-12b at 2 of its 8 units (12 layers) through the slot engine
+TP_RING = ["--arch", "gemma3-12b", "--depth", "2", "--kv", "ring",
+           "--requests", "4", "--prompt-lens", "64,256,1200", "--gen-lens",
+           "16,24", "--seed", str(SEED + 18), "--max-slots", "4"]
+# (c): planned by CudaMeasurer over the model axis, then a short trace
+TP_CUDA = ["--arch", "mistral-nemo-12b", "--kv", "paged", "--compact",
+           "--chunk-prefill", "256", "--kv-block", "16", "--backend", "cuda",
+           "--requests", "2", "--prompt-lens", "64,256", "--gen-lens", "16",
+           "--seed", str(SEED + 19), "--max-slots", "8"]
+# (tag, argv, model ranks, whether one rank replays the ranks' tokens; (c)'s
+# ranks are held to each other only)
+TP_STEPS = (("a", TP_PAGED, 2, True),
+            ("b", TP_PAGED + ["--kv-quant", "int8", "--kv-retain", "2"], 2,
+             True),
+            ("c", TP_CUDA, 2, False),
+            ("d", TP_DEEP4, 4, True),
+            ("e", TP_RING, 2, True))
+# the steps whose ranks share the card at once. A rank of mistral-nemo-12b
+# at 40 layers peaks near 30 GB while it draws its shards (a whole stacked
+# leaf, then its cut), so (a), (b) and (c) run alone; (d) (8 layers, 4
+# ranks) and (e) (12 layers, 2 ranks) together peak near 35 GB
+TP_WAVES = (("a",), ("b",), ("c",), ("d", "e"))
+# per-device planning budgets (GiB): the ranks' plans fit the card together
+TP_BUDGET_GB = {1: 60, 2: 30, 4: 16}
+TP_TIMEOUT = 400
+# The ranks' logits against one rank's at every token the ranks emitted
+# (one rank replays the ranks' tokens, so both saw the same tokens before
+# each): the largest difference at the ids both put in their top 8, over the
+# one-rank row's standard deviation. The two sum their f32 partial products
+# in other orders and split B1's context at other points, and carry those
+# roundings through bf16 activations of every layer and every earlier
+# token's K/V: a drift of a few per cent of the spread rms, and a tail over
+# hundreds of tokens x 8 ids. A path that attends to wrong rows or heads, or
+# sums the wrong pieces, leaves logits of the order of the spread apart
+# (a GLU `wi` cut contiguously: 1.40 of it, PERF.md).
+TP_DRIFT_BOUND = 0.25
+TP_RANK_LINE = re.compile(
+    r"^rank (\d+) \{[^}]*\}: param elements ([0-9,]+) \(spec tree "
+    r"([0-9,]+); sharded_param_count ([0-9,]+)\); pool (\d+) B \(predicted "
+    r"(\d+) B\); max_memory_allocated ([0-9.]+) GB \(predicted ([0-9.]+) "
+    r"GB, measured / predicted ([0-9.]+)\); launches paged_decode (\d+), "
+    r"paged_prefill (\d+), decode_attention (\d+), flash_attention (\d+); "
+    r"calls decodes (\d+), chunk_calls (\d+), prefills (\d+), "
+    r"prefill_calls (\d+); staged through the host (\d+) B \((.*)\); "
+    r"schedule digest (\w+); tokens digest (\w+)$", re.M)
+
+
+def tp_cfg(argv):
+    cfg = get_config(argv[argv.index("--arch") + 1])
+    if "--depth" in argv:
+        cfg = depth_variant(cfg, int(argv[argv.index("--depth") + 1]))
+    return cfg
+
+
+def _served(tag, out):
+    """(tokens digest, pool line, completed requests) of a CLI run."""
+    dig = re.search(r"^tokens digest (\w+)$", out, re.M)
+    pool = re.search(r"^pool: (.*)$", out, re.M)
+    done = re.search(r"completed=(\d+)", out)
+    if dig is None or pool is None or done is None:
+        fail(f"phase 16({tag}): no digest, pool or report line")
+    return dig.group(1), pool.group(1), int(done.group(1))
+
+
+def replay_one(tag, argv, tokens_out, replay):
+    """The serve CLI on one rank, in process, replaying the tokens of
+    another run's --tokens-out file (`replay`) and writing its own logits
+    at each (`tokens_out`): its digest, pool, schedule digest and wall."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = SV.main(argv + ["--tokens-out", tokens_out, "--replay",
+                                 replay, "--device", "cuda", "--hbm-budget-gb",
+                                 str(TP_BUDGET_GB[1])])
+    except Exception as e:              # noqa: BLE001 — logged, then failed
+        rc = f"{type(e).__name__}: {e}"
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"[16{tag} one rank] | {line}")
+    if rc != 0:
+        fail(f"phase 16({tag}): the one-rank serve CLI returned {rc}")
+    digest, pool, done = _served(tag, out)
+    sched = re.search(r"^schedule digest (\w+)$", out, re.M)
+    torch.cuda.empty_cache()
+    return {"digest": digest, "pool": pool, "done": done, "wall": wall,
+            "schedule": sched.group(1) if sched else "none",
+            "tokens": tokens_out}
+
+
+def start_ranks(tag, argv, world, tokens_out, tmp):
+    """The serve CLI on `world` model ranks sharing the card over gloo,
+    started in a subprocess leading a process group of its own (it spawns
+    its ranks; stop_ranks kills the group), its tokens and the logits at
+    each written to `tokens_out`."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *argv,
+           "--device", "cuda", "--model-parallel", str(world),
+           "--dist-backend", "gloo", "--hbm-budget-gb",
+           str(TP_BUDGET_GB[world]), "--tokens-out", tokens_out]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = open(os.path.join(tmp, f"{tag}.out"), "w+")
+    err = open(os.path.join(tmp, f"{tag}.err"), "w+")
+    proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=out, stderr=err,
+                            text=True, start_new_session=True)
+    return {"proc": proc, "out": out, "err": err, "t0": time.time(),
+            "world": world, "tokens": tokens_out}
+
+
+def stop_ranks(started):
+    """Kills what is left of the started runs (each CLI with its ranks)."""
+    for st in started.values():
+        if st["proc"].poll() is None:
+            try:
+                os.killpg(st["proc"].pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            st["proc"].wait()
+
+
+def wait_ranks(started):
+    """Waits for every started run, each given TP_TIMEOUT from its start;
+    a run that exits non-zero or runs out of time stops the others and
+    fails the phase. Returns {tag: wall}."""
+    walls = {}
+    while len(walls) < len(started):
+        for tag, st in started.items():
+            if tag in walls:
+                continue
+            rc = st["proc"].poll()
+            if rc is None and time.time() - st["t0"] > TP_TIMEOUT:
+                stop_ranks(started)
+                fail(f"phase 16({tag}): the serve CLI ran past "
+                     f"{TP_TIMEOUT} s")
+            if rc is None:
+                continue
+            walls[tag] = time.time() - st["t0"]
+            if rc != 0:
+                stop_ranks(started)
+                read_ranks(tag, st, walls[tag])
+                st["err"].seek(0)
+                for line in st["err"].read().splitlines()[-60:]:
+                    log(f"[16{tag}] ! {line}")
+                fail(f"phase 16({tag}): the serve CLI on {st['world']} ranks "
+                     f"exited with {rc}")
+        time.sleep(0.2)
+    return walls
+
+
+def read_ranks(tag, st, wall):
+    """A finished run's output, logged line by line, and parsed: its
+    digest, pool, completions, one record a rank and the ranks' plans."""
+    st["out"].seek(0)
+    text = st["out"].read()
+    for line in text.splitlines():
+        log(f"[16{tag}] | {line}")
+    if st["proc"].returncode != 0:
+        return None
+    world = st["world"]
+    digest, pool, done = _served(tag, text)
+    ranks = []
+    for m in TP_RANK_LINE.findall(text):
+        (r, el, spec_el, sharded, pool_b, pool_p, peak, pred, ratio, pd,
+         pp, da, fa, dec, chunks, pre, pre_calls, staged, kinds, sched,
+         dig) = m
+        ranks.append(dict(
+            rank=int(r), elements=int(el.replace(",", "")),
+            spec=int(spec_el.replace(",", "")),
+            sharded=int(sharded.replace(",", "")), pool=int(pool_b),
+            pool_pred=int(pool_p), peak=float(peak) * 1e9,
+            pred=float(pred) * 1e9, ratio=float(ratio),
+            launches={"paged_decode": int(pd), "paged_prefill": int(pp),
+                      "decode_attention": int(da),
+                      "flash_attention": int(fa)},
+            decodes=int(dec), chunks=int(chunks), prefill_calls=int(pre_calls),
+            staged=int(staged), kinds=kinds, schedule=sched, digest=dig))
+    plans = re.findall(r"^rank (\d+) plan: (.*)$", text, re.M)
+    planning = re.findall(r"^rank (\d+) planning step (.*)$", text, re.M)
+    if len(ranks) != world or len(plans) != world:
+        fail(f"phase 16({tag}): {len(ranks)} rank lines, {len(plans)} plan "
+             f"lines for {world} ranks")
+    return {"digest": digest, "pool": pool, "done": done, "wall": wall,
+            "ranks": ranks, "plans": [p for _, p in plans],
+            "planning": planning, "tokens": st["tokens"]}
+
+
+def judge_logits(tag, run, one):
+    """The ranks' served logits against one rank's at every token the ranks
+    emitted: one rank replayed the ranks' tokens, so each token's row on
+    both sides follows the same tokens. Each side's row is the top 8 logits
+    of the step that emitted the token. Fails where a side logged nothing,
+    where one rank does not put the ranks' token in its top 8, where the
+    ranks do not put one rank's argmax in theirs, or where the logits at
+    the ids both hold differ by more than TP_DRIFT_BOUND of one rank's
+    spread. Where one rank's argmax is another token (trap T2: the ranks'
+    own run parts there from one rank's), both gaps between the two tokens
+    are logged. Returns (tokens compared, tokens where the argmaxes differ,
+    the largest difference over the spread, the rms of them all)."""
+    with open(run["tokens"]) as f:
+        mine = json.load(f)
+    with open(one["tokens"]) as f:
+        theirs = json.load(f)
+    if mine["tokens"] != theirs["tokens"]:
+        fail(f"phase 16({tag}): one rank did not replay the ranks' tokens")
+    n, parted, worst, sq, m = 0, 0, 0.0, 0.0, 0
+    for rid in sorted(mine["tokens"], key=int):
+        toks = mine["tokens"][rid]
+        for k, tok in enumerate(toks):
+            a, b = mine["logits"][rid][k], theirs["logits"][rid][k]
+            if a is None or b is None:
+                fail(f"phase 16({tag}): request {rid} token {k}: no logits "
+                     "logged")
+            ta, tb = dict(zip(a[0], a[1])), dict(zip(b[0], b[1]))
+            std, best = b[2], b[0][0]
+            if tok not in ta or tok not in tb or best not in ta:
+                fail(f"phase 16({tag}): request {rid} token {k}: the ranks "
+                     f"emit {tok}, one rank's argmax is {best}, and one "
+                     "side's top 8 lacks the other's token: not a near-tie")
+            rel = [abs(ta[i] - tb[i]) / std for i in ta if i in tb]
+            drift = max(rel)
+            worst = max(worst, drift)
+            sq += sum(r * r for r in rel)
+            m += len(rel)
+            if best != tok:
+                parted += 1
+                log(f"[16{tag}] request {rid} token {k}: the ranks' argmax "
+                    f"{tok} is {(ta[tok] - ta[best]) / a[2]:.4f} of their "
+                    f"spread above {best}; one rank's {best} "
+                    f"{(tb[best] - tb[tok]) / std:.4f} of its spread above "
+                    f"{tok} (a near-tie)")
+            if drift > TP_DRIFT_BOUND:
+                fail(f"phase 16({tag}): request {rid} token {k}: the ranks' "
+                     f"top logits {drift:.4f} of the spread from one rank's "
+                     f"(bound {TP_DRIFT_BOUND}): not a rounding drift")
+            n += 1
+    return n, parted, worst, (sq / m) ** 0.5
+
+
+def judge_tp(tag, argv, world, run, one):
+    """Phase 16's gates on one run of `world` ranks and its one-rank replay
+    (or None): the same pool, completions and block-table schedule
+    (retention's drops included) as one rank under the same tokens, and the
+    served logits at every token within TP_DRIFT_BOUND (judge_logits);
+    every rank's tokens, schedule and plan rank 0's; each rank's parameter
+    elements the spec tree's shard, its pool the predictor's per-device
+    blocks, its kernels launched once a layer and call; its peak beside
+    the plan's prediction and its staged bytes printed. Returns the ranks'
+    launches summed."""
+    cfg = tp_cfg(argv)
+    n_attn = n_attention(cfg)
+    paged = "paged" in argv
+    elements = rank_elements(cfg, {"data": 1, "model": world})
+    if one is not None:
+        if (run["pool"], run["done"]) != (one["pool"], one["done"]):
+            fail(f"phase 16({tag}): {world} ranks ran pool {run['pool']} "
+                 f"and completed {run['done']}, one rank pool "
+                 f"{one['pool']} and {one['done']}")
+        if paged and one["schedule"] != run["ranks"][0]["schedule"]:
+            fail(f"phase 16({tag}): under the same tokens the ranks gave "
+                 "their steps other block tables than one rank (schedule "
+                 f"{run['ranks'][0]['schedule'][:16]}, one rank "
+                 f"{one['schedule'][:16]})")
+        compared, parted, worst, rms = judge_logits(tag, run, one)
+    if len(set(run["plans"])) != 1:
+        fail(f"phase 16({tag}): the ranks planned apart: {run['plans']}")
+    total = {k: 0 for k in ("paged_decode", "paged_prefill",
+                            "decode_attention", "flash_attention")}
+    for r in run["ranks"]:
+        # the card's planning steps (CudaMeasurer: a ring decode or a
+        # prefill at a ladder point) launch the ring decode or the flash
+        # kernel once a layer too
+        steps = [t.split()[0] for k, t in run["planning"]
+                 if int(k) == r["rank"]]
+        want = {"paged_decode": n_attn * r["decodes"] if paged else 0,
+                "paged_prefill": n_attn * r["chunks"] if paged else 0,
+                "decode_attention": n_attn * (
+                    steps.count("decode")
+                    + (0 if paged else r["decodes"])),
+                "flash_attention": n_attn * (r["prefill_calls"]
+                                             + steps.count("prefill"))}
+        log(f"[16{tag}] rank {r['rank']} of {world}: {r['elements']:,} "
+            f"parameter elements (spec tree {elements[r['rank']]:,}; "
+            f"predictor.sharded_param_count {r['sharded']:,}, difference "
+            f"{r['elements'] - r['sharded']:,}: the replicated norms); pool "
+            f"{r['pool']} B against the predictor's {r['pool_pred']} B; "
+            f"max_memory_allocated {r['peak'] / 1e9:.3f} GB against the "
+            f"plan's {r['pred'] / 1e9:.3f} GB (measured / predicted "
+            f"{r['ratio']}); launches {r['launches']} (predicted {want}: "
+            f"{n_attn} layers x {r['decodes']} decode ticks, "
+            f"{r['chunks']} chunk calls, {r['prefill_calls']} prefill "
+            f"calls); staged through the host {r['staged']} B "
+            f"({r['kinds']}); {run['wall']:.2f}s with start-up "
+            f"({nvidia_smi_line()})")
+        if r["elements"] != elements[r["rank"]] or r["spec"] != r["elements"]:
+            fail(f"phase 16({tag}): rank {r['rank']} holds {r['elements']} "
+                 f"parameter elements, spec tree {elements[r['rank']]}")
+        if r["pool"] != r["pool_pred"]:
+            fail(f"phase 16({tag}): rank {r['rank']}'s pool {r['pool']} B, "
+                 f"predicted {r['pool_pred']} B")
+        if r["launches"] != want or not r["decodes"]:
+            fail(f"phase 16({tag}): rank {r['rank']} launched "
+                 f"{r['launches']}, predicted {want}")
+        if (r["digest"], r["schedule"]) != (run["digest"],
+                                            run["ranks"][0]["schedule"]):
+            fail(f"phase 16({tag}): rank {r['rank']}'s tokens or schedule "
+                 "differ from rank 0's")
+        for k in total:
+            total[k] += r["launches"][k]
+    for line in run["planning"]:
+        log(f"[16{tag}] planning on the card: rank {line[0]} {line[1]}")
+    if "--backend" in argv and len(run["planning"]) < world:
+        fail(f"phase 16({tag}): the card measured no planning step on "
+             "every rank")
+    if one is None:
+        same = "every rank the same tokens (no one-rank run)"
+        one_wall = ""
+    else:
+        same = (f"one rank, replaying the ranks' tokens, ran the same "
+                f"schedule and puts its argmax on the ranks' token at "
+                f"{compared - parted} of {compared} tokens (near-ties at the "
+                f"other {parted}); the top logits at most {worst:.4f} of the "
+                f"spread apart (bound {TP_DRIFT_BOUND}), rms {rms:.4f}")
+        one_wall = f"{one['wall']:.2f}s (one rank's replay) and "
+    log(f"[16{tag}] {world} ranks: {same}; pool {run['pool']}, plan "
+        f"{run['plans'][0]}; walls {one_wall}{run['wall']:.2f}s ({world} "
+        f"ranks with start-up, beside the other runs of its wave)")
+    return total
+
+
+def phase_tp():
+    """Phase 16: the serve CLI on model:2 and model:4, ranks sharing the
+    card over gloo, the runs of a wave (TP_WAVES) at once; then one rank of
+    the same CLI and trace, in process, replays each run's tokens, and the
+    two are held to each other token by token (judge_tp)."""
+    steps = {tag: (argv, world, replay)
+             for tag, argv, world, replay in TP_STEPS}
+    walls, runs, totals = {}, {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        for wave in TP_WAVES:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            t0 = time.time()
+            started = {}
+            try:
+                for tag in wave:
+                    argv, world, _ = steps[tag]
+                    started[tag] = start_ranks(
+                        tag, argv, world,
+                        os.path.join(tmp, f"{tag}_ranks.json"), tmp)
+                ends = wait_ranks(started)
+            finally:
+                stop_ranks(started)
+            for tag in wave:
+                runs[tag] = read_ranks(tag, started[tag], ends[tag])
+                walls[tag] = ends[tag]
+            if len(wave) > 1:
+                walls["wave " + "".join(wave)] = time.time() - t0
+        for tag, (argv, world, replay) in steps.items():
+            t0 = time.time()
+            one = (replay_one(tag, argv, os.path.join(tmp, f"{tag}_one.json"),
+                              runs[tag]["tokens"]) if replay else None)
+            totals[tag] = judge_tp(tag, argv, world, runs[tag], one)
+            walls[tag + " one rank"] = time.time() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("[16] walls " + ", ".join(f"({k}) {v:.2f}s"
+                                  for k, v in walls.items()))
+    log("[16] these runs are ranks sharing one card over gloo (each "
+        "collective staged through the host), the runs of a wave beside "
+        "each other, not a multi-GPU measurement")
+    return totals
+
+
 def add_launches(rows, name, phase, n):
     """Adds `n` launches of phase `phase` to the row `name` of the kernels
     line (its `launches` and its `launches_by_phase`)."""
@@ -4080,13 +4540,13 @@ def add_launches(rows, name, phase, n):
     fail(f"no kernels row {name}")
 
 
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16}
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (1 always runs)")
     args = ap.parse_args()
     phases = {int(x) for x in args.phases.split(",")}
@@ -4136,7 +4596,7 @@ def main():
         t0 = time.time()
         phase_cli()
         log(f"[11] phase 11 {time.time() - t0:.2f}s")
-    p12 = p13 = p14 = p15 = None
+    p12 = p13 = p14 = p15 = p16 = None
     if 12 in phases:
         torch.cuda.empty_cache()
         t0 = time.time()
@@ -4157,17 +4617,37 @@ def main():
         t0 = time.time()
         p15 = phase_dryrun()
         log(f"[15] phase 15 {time.time() - t0:.2f}s")
+    if 16 in phases:
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        p16 = phase_tp()
+        log(f"[16] phase 16 {time.time() - t0:.2f}s")
     if g3 is not None:
         rows.append(ring_row(g3, rg, errs["decode_attention"]))
         rows.append(slot_prefill_row(g3["cfg"], g3["slot"]["flash"],
                                      errs["flash_attention"]))
     if ALL_PHASES <= phases:
-        # the launches of phases 12 to 15, each counted from zero just
+        # the launches of phases 12 to 16, each counted from zero just
         # before its path and read just after (phase 14: every rank of its
         # meshes (a)-(c), over its training loop; phase 15: the steps the
-        # dry-run and the hillclimb measured on the card), added to their
+        # dry-run and the hillclimb measured on the card; phase 16: every
+        # rank of its runs (a)-(e) on a model axis), added to their
         # kernels' rows
         a, b, c = p13["a"], p13["b"], p13["c"]
+        for tag, codec in (("a", "bf16"), ("b", "int8"), ("c", "bf16"),
+                           ("d", "bf16")):
+            t = p16[tag]
+            add_launches(rows, f"paged_decode[{codec}]", "16" + tag,
+                         t["paged_decode"])
+            add_launches(rows, f"paged_prefill[{codec}]", "16" + tag,
+                         t["paged_prefill"])
+            add_launches(rows, "flash_attention[prefill_batch]", "16" + tag,
+                         t["flash_attention"])
+        for tag in ("c", "e"):          # (c): the card's planning steps
+            add_launches(rows, "decode_attention", "16" + tag,
+                         p16[tag]["decode_attention"])
+        add_launches(rows, "flash_attention[slot_prefill]", "16e",
+                     p16["e"]["flash_attention"])
         for name, phase, n in (
                 ("flash_attention[train]", "12", p12["fwd"]),
                 ("flash_attention_bwd", "12", p12["bwd"]),

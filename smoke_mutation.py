@@ -15,11 +15,17 @@ the data axes' gradient mean left out of `sync_grads`, and gathered
 shards concatenated in reverse rank order. Phase 15: the step counter
 counting a train step's forward alone (the backward's and the
 optimizer's FLOPs dropped), and the card dry-run measuring with the
-simulator instead of the card.
+simulator instead of the card. Phase 16 (the serve CLI on a model axis):
+a GLU `wi` cut contiguously (rank 0 holds the whole gate, rank 1 the
+whole val), caught at 16(a) by the ranks' served logits against one
+rank's replay of their tokens; and the attention mass left per rank, not
+summed over the model axis (the ranks rank blocks for retention each by
+its own heads), caught at 16(b) by the ranks' block-table schedules.
 
     python3 smoke_mutation.py              # 13(b) at x0.9 and x0.97, 13(a) at x0.9
     python3 smoke_mutation.py --phase 14   # the two parallel-layer faults
     python3 smoke_mutation.py --phase 15   # the two dry-run faults
+    python3 smoke_mutation.py --phase 16   # the two model-axis faults
 
 Prints, for each case, whether the phase failed (caught) or passed.
 Needs a CUDA device.
@@ -53,7 +59,20 @@ FAULTS_15 = (
      "planned_m = MM.CudaMeasurer(eplan.mesh_shape, cache=cache)",
      "planned_m = MM.SimulatedMeasurer(eplan.mesh_shape, cache=cache)"),
 )
-FAULTS = {14: FAULTS_14, 15: FAULTS_15}
+FAULTS_16 = (
+    ("wi cut contiguously (the GLU trap)",
+     "src/repro_torch/parallel/sharding.py",
+     "    if not glu or last is None or last.stop - last.start == "
+     "x.shape[-1]:\n",
+     "    if True:\n"),
+    ("the attention mass not summed over the model axis",
+     "src/repro_torch/serving/executor.py",
+     "        if self.group is not None:\n"
+     "            mass = comm.all_reduce(",
+     "        if False:\n"
+     "            mass = comm.all_reduce("),
+)
+FAULTS = {14: FAULTS_14, 15: FAULTS_15, 16: FAULTS_16}
 
 
 def planted(phase):
@@ -95,7 +114,8 @@ def planted(phase):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", type=int, choices=(13, 14, 15), default=13)
+    ap.add_argument("--phase", type=int, choices=(13, 14, 15, 16),
+                    default=13)
     phase = ap.parse_args().phase
     if phase in FAULTS:
         return planted(phase)

@@ -64,9 +64,18 @@ def _from_storable(arr: np.ndarray, name: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
+def _refuse_model_axis(mesh):
+    """A tensor-parallel layout (a GLU wi cut half by half) is not saved
+    or restored: its leaves would need the halves' gather."""
+    if mesh is not None and mesh.axis_size("model") > 1:
+        raise NotImplementedError("a mesh checkpoint of a model axis above "
+                                  "1 is not ported: ROADMAP queue A item 5")
+
+
 def save(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None,
          async_: bool = False, mesh=None,
          spec_tree=None) -> Optional[threading.Thread]:
+    _refuse_model_axis(mesh)
     flat: Dict[str, np.ndarray] = {}
     leaves = {}
     specs = (tree_leaves(spec_tree) if spec_tree is not None
@@ -125,6 +134,7 @@ def restore(ckpt_dir: str, target_tree, step: Optional[int] = None,
     without a CUDA device). With `mesh` and `spec_tree` the target's
     leaves are this rank's shards, and each gets its slice of the stored
     leaf. Returns (tree, manifest dict)."""
+    _refuse_model_axis(mesh)
     dev = require_device(device)
     if step is None:
         step = latest_step(ckpt_dir)

@@ -23,7 +23,8 @@ def _to_tensor(a, dtype, device):
     return t.to(device)
 
 
-def params_from_jax(numpy_tree, cfg, device="cuda"):
+def params_from_jax(numpy_tree, cfg, device="cuda", mesh=None,
+                    spec_tree=None):
     """A parameter tree of numpy arrays (same nesting and leaf layout as the
     reference package's `init_params` for `cfg`) -> this package's params
     on `device` (default "cuda"; raises without a CUDA device; the tests
@@ -33,16 +34,32 @@ def params_from_jax(numpy_tree, cfg, device="cuda"):
     the meta device as a template (no memory, no values). So projections
     take cfg.param_dtype and leaves the reference keeps in f32 (the mLSTM
     gate projections and biases, the sLSTM recurrence and bias) stay f32.
-    A leaf whose shape differs from the template's raises ValueError."""
+    A leaf whose shape differs from the template's raises ValueError.
+
+    With a `mesh` (`launch.mesh.Mesh`) the result is this rank's shards:
+    each leaf cut on the host by `parallel.sharding.local_slice` under
+    `spec_tree` (default: `param_specs` of the config's
+    `default_strategy` on the mesh), a GLU `wi` half by half, so that
+    every package sees the same weights."""
     device = require_device(device)
     gen = torch.Generator().manual_seed(0)
     template = init_params(gen, cfg, device="meta")
+    glu = specs = None
+    if mesh is not None:
+        from repro_torch.parallel import sharding as S
+        specs = spec_tree if spec_tree is not None else S.param_specs(
+            cfg, template, S.default_strategy(cfg, mesh), mesh)
+        glu = S.glu_tree(cfg, template)
+        leaves = iter(zip(tree_leaves(specs), tree_leaves(glu)))
 
     def conv(a, t):
         a = np.asarray(a)
         if tuple(a.shape) != tuple(t.shape):
             raise ValueError(f"leaf of shape {a.shape}, template "
                              f"{tuple(t.shape)}")
+        if mesh is not None:
+            spec, g = next(leaves)
+            a = S.local_slice(a, spec, mesh, g)
         return _to_tensor(a, t.dtype, device)
 
     return _zip_map(numpy_tree, template, conv)

@@ -227,25 +227,46 @@ class CudaMeasurer(MemoryMeasurer):
 
     One set of random params per config is kept across the points of a
     ladder (`release()` frees it); a train step updates it in place.
-    Measures on one card (a mesh of one device); the serving knobs of a
-    paged plan (kv_block_size > 0) are not measured — the predictor plans
-    them. Raises on anything but a CUDA device: there is no fallback to the
+    Measures on one card, or over a {model: M} mesh inside a process group
+    of exactly M ranks (`group`: the mesh's model group): each rank runs
+    its shard's prefill or decode step (its params cut by
+    `sharding.init_local_params`, its cache at n_kv_heads / M heads, the
+    step inside `comm.model_axis`), and every reading is reduced with max
+    over the ranks before anything classifies it, so every rank reaches
+    the same class and plan. The serving knobs of a paged plan
+    (kv_block_size > 0) are not measured — the predictor plans them.
+    Raises on anything but a CUDA device: there is no fallback to the
     simulator. `steps` and `step_seconds` count the steps run and their
     wall time (placing inputs included), for a CLI's planning report.
     """
 
     backend = "cuda"
     steps, step_seconds = 0, 0.0
+    group = None                    # the model group of a model axis
+    # (shape, plan, this rank's readings, the readings reduced over the
+    # ranks) of every step measured: argument, transient, output, peak
+    records = ()
 
     def __init__(self, mesh: Optional[MeshLike] = None,
-                 cache: Optional[ProfileCache] = None, device="cuda"):
+                 cache: Optional[ProfileCache] = None, device="cuda",
+                 group=None):
         import torch
         mesh = {"data": 1} if mesh is None else mesh
-        if n_devices_of(mesh_shape_of(mesh)) != 1:
+        shape = mesh_shape_of(mesh)
+        model = int(shape.get("model", 1))
+        if n_devices_of(shape) != model:
             raise NotImplementedError(
-                f"CudaMeasurer measures on one card, not a mesh of "
-                f"{n_devices_of(mesh_shape_of(mesh))} devices (measuring "
-                "over a mesh is not ported: ROADMAP queue A item 5)")
+                f"CudaMeasurer measures on one card or over a model axis, "
+                f"not a mesh of {n_devices_of(shape)} devices {shape} "
+                "(measuring over a data axis is not ported: ROADMAP queue "
+                "A item 5)")
+        if model > 1:
+            import torch.distributed as dist
+            if group is None or dist.get_world_size(group) != model:
+                raise NotImplementedError(
+                    f"CudaMeasurer over {shape} needs the mesh's model "
+                    f"group of {model} ranks (a mesh without one is not "
+                    "measured: ROADMAP queue A item 5)")
         dev = torch.device(device)
         if dev.type != "cuda":
             raise ValueError(f"CudaMeasurer measures on a CUDA device, not "
@@ -256,16 +277,40 @@ class CudaMeasurer(MemoryMeasurer):
                                "False")
         super().__init__(mesh, cache)
         self.device = dev
+        self.group = group if model > 1 else None
         self._params = None         # (cfg, params) kept across a ladder
 
+    def _mesh(self):
+        """This rank's {data: 1, model: M} launch.mesh.Mesh over `group`."""
+        import torch.distributed as dist
+        from repro_torch.launch import mesh as LM
+        m = int(self.mesh_shape.get("model", 1))
+        return LM.Mesh(axis_names=("data", "model"),
+                       shape={"data": 1, "model": m},
+                       coords={"data": 0, "model": dist.get_rank(self.group)},
+                       groups={"model": self.group})
+
     def params_for(self, cfg: ModelConfig):
-        """The random params of `cfg` on the card, made once per config."""
+        """The random params of `cfg` on the card (this rank's shards over
+        a model axis), made once per config."""
         if self._params is None or self._params[0] != cfg:
             import torch
             from repro_torch.models import model as M
             self.release()
             gen = torch.Generator(device=self.device).manual_seed(0)
-            self._params = (cfg, M.init_params(gen, cfg, device=self.device))
+            if self.group is None:
+                params = M.init_params(gen, cfg, device=self.device)
+            else:
+                from repro_torch.parallel import sharding as S
+                from repro_torch.runtime import schedule as SCH
+                mesh = self._mesh()
+                SCH.check_serving_mesh(cfg, mesh.shape)
+                specs = S.param_specs(cfg, M.init_params(None, cfg,
+                                                         device="meta"),
+                                      S.default_strategy(cfg, mesh), mesh)
+                params = S.init_local_params(gen, cfg, self.device, specs,
+                                             mesh)
+            self._params = (cfg, params)
         return self._params[1]
 
     def release(self) -> None:
@@ -275,12 +320,36 @@ class CudaMeasurer(MemoryMeasurer):
         torch.cuda.empty_cache()
 
     def _measure(self, cfg, shape, plan, settings) -> E.MemoryProfile:
+        t0 = time.time()
+        mine = [float(v) for v in self._readings(cfg, shape, plan,
+                                                  settings)]
+        readings = mine
+        if self.group is not None:
+            import torch
+            from repro_torch.parallel import comm
+            readings = [float(v) for v in comm.all_reduce(
+                torch.tensor(mine, dtype=torch.float64,
+                             device=self.device), self.group,
+                op="max", kind="measure")]
+        self.records = [*self.records, (shape, plan, mine, readings)]
+        argument, transient, output, peak = readings
+        self.steps += 1
+        self.step_seconds += time.time() - t0
+        n = n_devices_of(self.mesh_shape)
+        return E.profile_from_measured(
+            cfg, shape, argument, transient, output, peak, n,
+            dp_size_of(self.mesh_shape))
+
+    def _readings(self, cfg, shape, plan, settings):
+        """(argument, transient, output, peak) bytes of one step on this
+        rank's card."""
         # Lazy: keep core.measure importable without the model / runtime
         # stack (the simulator path never needs it).
         import torch
         from repro_torch.core import profiler as PF
         from repro_torch.models import model as M
         from repro_torch.optim import optimizers as OPT
+        from repro_torch.parallel import comm
         from repro_torch.runtime import schedule as SCH
         from repro_torch.runtime import serve_step as SS
         from repro_torch.tree import tree_leaves
@@ -288,8 +357,10 @@ class CudaMeasurer(MemoryMeasurer):
             raise NotImplementedError(
                 "CudaMeasurer runs ring-cache decode; paged plans "
                 "(kv_block_size > 0) are sized by the predictor")
-        t0 = time.time()
+        if self.group is not None and shape.kind == TRAIN:
+            raise NotImplementedError(SCH.TENSOR_PARALLEL)
         dev = self.device
+        model = int(self.mesh_shape.get("model", 1))
         params = self.params_for(cfg)
         gen = torch.Generator(device=dev).manual_seed(1)
         b, s = shape.global_batch, shape.seq_len
@@ -324,7 +395,8 @@ class CudaMeasurer(MemoryMeasurer):
                                prefix_embeds=placed.get("prefix_embeds"))
         elif shape.kind == DECODE:
             placed = {"cache": M.init_cache(cfg, b, shape.context,
-                                            device=dev),
+                                            device=dev,
+                                            model_parallel=model),
                       "tokens": tokens(b, 1),
                       "positions": torch.full((b,), shape.context - 1,
                                               dtype=torch.int32, device=dev)}
@@ -341,17 +413,14 @@ class CudaMeasurer(MemoryMeasurer):
         torch.cuda.synchronize(dev)
         before = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        out = step()
+        with comm.model_axis(self.group):
+            out = step()
         torch.cuda.synchronize(dev)
         peak = torch.cuda.max_memory_allocated(dev)
         output = max(torch.cuda.memory_allocated(dev) - before, 0)
         del out, placed
         transient = max(peak - before - output, 0)
-        self.steps += 1
-        self.step_seconds += time.time() - t0
-        return E.profile_from_measured(
-            cfg, shape, argument, transient, output,
-            argument + peak - before, 1, dp_size_of(self.mesh_shape))
+        return argument, transient, output, argument + peak - before
 
 
 class SimulatedMeasurer(MemoryMeasurer):

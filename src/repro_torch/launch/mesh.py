@@ -224,6 +224,15 @@ def _rank_main(rank, world, backend, kind, init_method, flags, out_dir, fn,
         os._exit(1)
 
 
+def cli_rank(device, main: Callable, argv):
+    """One spawned rank of a CLI: main(argv), rank 0 printing and the
+    others silent."""
+    import torch.distributed as dist
+    if dist.get_rank() != 0:
+        sys.stdout = open(os.devnull, "w")
+    return main(argv)
+
+
 def spawn_ranks(fn: Callable, world: int, backend: str, device: str = "cuda",
                 args: Sequence = (), timeout: Optional[float] = None
                 ) -> List[Any]:

@@ -20,12 +20,29 @@ Differences from the reference CLI:
     the two CLIs print the same plan line, since planning reads the
     hardware only through its memory size;
   * `--device` (default cuda; raises without a CUDA device) takes the
-    place of the jax device list: one device, no mesh, no axis rules;
+    place of the jax device list. The devices are ranks: the world
+    `torchrun` made, or `--model-parallel M` local ranks the CLI spawns
+    (`launch.mesh.spawn_ranks`, joined over `--dist-backend`: nccl with
+    one card a rank, gloo to share one card or on the CPU). The mesh is
+    {data: 1, model: M} and serving is tensor-parallel over "model"
+    (explicit collectives, `parallel.comm`) where the reference runs GSPMD
+    under its axis rules; a plan with a data (or pipe) axis above 1, and
+    an arch the model axis does not cover, raise naming ROADMAP queue A
+    item 5 (`runtime.schedule.serving_mesh_problems`) before any rank
+    allocates its params;
   * `--backend` is simulate or cuda, and `--forbid-plan-compiles` forbids
     a CudaMeasurer step during planning;
   * the executors are TorchExecutor (ring) and PagedTorchExecutor (paged),
     and on the card the run ends with torch.cuda.max_memory_allocated()
-    beside the plan's predicted resident + transient bytes.
+    beside the plan's predicted resident + transient bytes;
+  * the run prints a digest of the completions' tokens; on more than one
+    rank, one line a rank (its parameter elements against the spec tree's
+    shard and `predictor.sharded_param_count`, its pool bytes against the
+    predictor's per-device blocks, its peak against the plan's prediction,
+    its attention kernels' launches, the bytes its collectives staged
+    through the host by kind, a digest of the block tables the engine gave
+    its steps and of its tokens), and the CLI fails if any rank's tokens,
+    schedule or plan differ from rank 0's.
 
 Examples:
   # CPU, reduced config:
@@ -37,23 +54,39 @@ Examples:
       --kv paged --compact --chunk-prefill 256 --mesh auto --requests 16 \
       --prompt-lens 64,200,256,520,1024,2048 --gen-lens 16,24,32 \
       [--backend simulate|cuda]
+  # two ranks, tensor-parallel, on the CPU (reduced config):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-nemo-12b \
+      --reduced --device cpu --kv paged --compact --chunk-prefill 8 \
+      --model-parallel 2 --requests 6 --prompt-lens 4,8,20 --gen-lens 2,4
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
+import json
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import hw as HW
 from repro_torch.configs import get_config
-from repro_torch.configs.base import DECODE, ShapeConfig
+from repro_torch.configs.base import DECODE, ShapeConfig, depth_variant
 from repro_torch.core import measure as MM
 from repro_torch.core import predictor as PR
 from repro_torch.core.predictor import MemoryPlan
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import paged_decode as PD
+from repro_torch.kernels import paged_prefill as PP
+from repro_torch.launch import mesh as LM
 from repro_torch.models import init_params
 from repro_torch.models.model import require_device
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding as S
+from repro_torch.runtime import schedule as SCH
 from repro_torch.search import execplan as XP
 from repro_torch.search import space as SP
 from repro_torch.serving import (AUDIT_MODES, BlockAllocator,
@@ -62,11 +95,161 @@ from repro_torch.serving import (AUDIT_MODES, BlockAllocator,
                                  describe_trace, leak_check, length_stats,
                                  survivor_mismatches, synthetic_trace,
                                  trace_context)
-from repro_torch.serving.executor import PagedTorchExecutor, TorchExecutor
+from repro_torch.serving.executor import (PagedTorchExecutor, TokenLog,
+                                          TorchExecutor, history_key)
 
 
 def _int_list(s: str):
     return tuple(int(v) for v in s.split(",") if v)
+
+
+def tokens_digest(reports) -> str:
+    """sha256 of every report's completions: (rid, tokens) in rid order."""
+    h = hashlib.sha256()
+    for rep in reports:
+        for c in sorted(rep.completions, key=lambda c: c.rid):
+            h.update(repr((c.rid, tuple(int(t) for t in c.tokens)))
+                     .encode())
+    return h.hexdigest()
+
+
+def token_records(trace, reports, log):
+    """{rid: tokens} of the last report's completions, and {rid: one
+    record per token} from the token log: the served step's top logits
+    ([ids, values]) and the row's standard deviation, or None where the
+    log filed nothing for that token."""
+    prompts = {int(r.rid): list(r.prompt) for r in trace}
+    tokens = {int(c.rid): [int(t) for t in c.tokens]
+              for c in reports[-1].completions}
+    records = {}
+    for rid, toks in tokens.items():
+        rows = []
+        for k in range(len(toks)):
+            rec = log.records.get(history_key(prompts[rid] + toks[:k]))
+            rows.append(None if rec is None else [rec[0], rec[1], rec[2]])
+        records[rid] = rows
+    return tokens, records
+
+
+def replay_force(trace, path):
+    """{history key: token} that makes a run emit the tokens of another
+    run's `--tokens-out` file (the same trace)."""
+    with open(path) as f:
+        theirs = {int(k): v for k, v in json.load(f)["tokens"].items()}
+    force = {}
+    for r in trace:
+        toks = theirs.get(int(r.rid), [])
+        for k, t in enumerate(toks):
+            force[history_key(list(r.prompt) + toks[:k])] = int(t)
+    return force
+
+
+def predicted_pool_bytes(cfg, shape: ShapeConfig, splan, n_slots: int,
+                         n_blocks: int) -> float:
+    """The bytes the predictor charges one device for the pool this CLI
+    builds: paged, (n_blocks + 1) x kv_block_bytes_per_device (the scratch
+    block included) plus n_slots x lane_bytes_per_device; a slot pool,
+    cache_bytes_per_device at n_slots sequences."""
+    ex = splan.execution
+    sh = dataclasses.replace(shape, kind=DECODE, global_batch=n_slots)
+    if not splan.kv_block:
+        return PR.cache_bytes_per_device(cfg, sh, ex.plan, ex.mesh_shape)
+    return ((n_blocks + 1) * PR.kv_block_bytes_per_device(
+        cfg, sh, ex.plan, ex.mesh_shape)
+        + n_slots * PR.lane_bytes_per_device(cfg, sh, ex.plan,
+                                             ex.mesh_shape))
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _planning_peaks(cfg, measurer, mesh_shape):
+    """Each step the card measured while planning: this rank's peak, the
+    peak reduced over the ranks, and the simulator's for the same point
+    (bytes)."""
+    sim = MM.SimulatedMeasurer(mesh_shape)
+    return [(sh.kind, sh.seq_len, sh.global_batch, mine[3], red[3],
+             sim.measure(cfg, sh, plan).peak_bytes)
+            for sh, plan, mine, red in measurer.records]
+
+
+def _report_ranks(cfg, mesh, specs, params, executor, splan, shape, n_slots,
+                  n_blocks, predicted, dev, digest, plan_line,
+                  planning) -> int:
+    """Rank 0 prints one line a rank: parameter elements against the spec
+    tree's shard and the predictor's sharded_param_count, pool bytes
+    against the predictor's, the peak against the plan's prediction, the
+    attention kernels' launches and the engine's step calls, the bytes
+    staged through the host by kind, the digests of the block tables the
+    engine gave the steps (the schedule: retention's drops included) and
+    of the tokens; and, where the card measured planning steps, each
+    step's peak on the rank, over the ranks and in the simulator. Returns
+    1 when a rank's tokens, schedule or plan differ from rank 0's."""
+    from repro_torch.tree import tree_leaves
+    abstract = init_params(None, cfg, device="meta")
+    want = sum(int(torch.Size(S.local_shape(t.shape, s, mesh)).numel())
+               for t, s in zip(tree_leaves(abstract), tree_leaves(specs)))
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    mine = dict(rank=mesh.rank, coords=dict(mesh.coords),
+                elements=sum(t.numel() for t in tree_leaves(params)),
+                spec_elements=want, pool=_tree_bytes(executor.pool),
+                peak=peak,
+                launches=dict(paged_decode=PD.launches,
+                              paged_prefill=PP.launches,
+                              decode_attention=DA.launches,
+                              flash_attention=FA.launches),
+                calls=dict(decodes=executor.decodes,
+                           chunk_calls=getattr(executor, "chunk_calls", 0),
+                           prefills=executor.prefills,
+                           prefill_calls=_prefill_calls(executor)),
+                staged=comm.staged_bytes, by_kind=dict(comm.staged_by_kind),
+                schedule=getattr(executor, "schedule_digest", "none"),
+                digest=digest, plan=plan_line, planning=planning)
+    rows = [None] * dist.get_world_size()
+    dist.all_gather_object(rows, mine)
+    sharded = PR.sharded_param_count(cfg, splan.execution.mesh_shape)
+    pool_want = predicted_pool_bytes(cfg, shape, splan, n_slots, n_blocks)
+    bad = 0
+    for r in rows:
+        mem = ("not measured (CPU)" if r["peak"] is None else
+               f"{r['peak'] / 1e9:.3f} GB (predicted {predicted / 1e9:.3f}"
+               f" GB, measured / predicted {r['peak'] / predicted:.4f})")
+        kinds = ", ".join(f"{k} {v}" for k, v in sorted(
+            r["by_kind"].items(), key=str)) or "none"
+        print(f"rank {r['rank']} {r['coords']}: param elements "
+              f"{r['elements']:,} (spec tree {r['spec_elements']:,}; "
+              f"sharded_param_count {sharded:,.0f}); pool {r['pool']} B "
+              f"(predicted {pool_want:.0f} B); max_memory_allocated {mem}; "
+              f"launches " + ", ".join(f"{k} {v}" for k, v in
+                                      r["launches"].items())
+              + "; calls " + ", ".join(f"{k} {v}" for k, v in
+                                      r["calls"].items())
+              + f"; staged through the host {r['staged']} B ({kinds}); "
+              f"schedule digest {r['schedule']}; tokens digest "
+              f"{r['digest']}")
+        print(f"rank {r['rank']} plan: {r['plan']}")
+        for kind, seq, batch, own, red, sim in r["planning"]:
+            print(f"rank {r['rank']} planning step {kind} seq {seq} batch "
+                  f"{batch}: peak {own:.0f} B on this rank, {red:.0f} B "
+                  f"max over the ranks, simulator {sim:.0f} B")
+        bad += (r["digest"], r["plan"], r["schedule"]) != (
+            rows[0]["digest"], rows[0]["plan"], rows[0]["schedule"])
+    if bad:
+        print(f"ERROR: {bad} rank(s) emitted tokens, planned or scheduled "
+              "other than rank 0")
+        return 1
+    return 0
+
+
+def _prefill_calls(executor) -> int:
+    """Prefill steps the executor ran (each launches the flash kernel once
+    an attention layer)."""
+    if isinstance(executor, PagedTorchExecutor):
+        return sum(executor.shape_calls["prefill"].values())
+    return executor.prefill_calls
 
 
 def predicted_bytes(cfg, shape: ShapeConfig, splan, cls, n_slots: int,
@@ -115,6 +298,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--depth", type=int, default=0,
+                    help="override depth to N unit repeats")
     # trace knobs (deterministic: same seed + knobs => same trace)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-lens", type=_int_list, default=(4, 8))
@@ -129,7 +314,15 @@ def main(argv=None):
                     help="'' = (data, model) host mesh from --model-parallel; "
                          "'auto' = search the serving lattice for the mesh "
                          "that maximizes admitted concurrency")
-    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks on the model axis (tensor parallelism); "
+                         "without torchrun the CLI spawns this many local "
+                         "ranks")
+    ap.add_argument("--dist-backend", default="",
+                    choices=["", *LM.BACKENDS],
+                    help="torch.distributed backend of the ranks (default "
+                         "nccl on cuda, one card a rank; gloo on cpu, or "
+                         "to share one card)")
     ap.add_argument("--backend", default="simulate",
                     choices=["simulate", "cuda"],
                     help="measurement backend for workload classification; "
@@ -246,6 +439,17 @@ def main(argv=None):
                          "report, 'off' skips the sweep")
     ap.add_argument("--policy", default="continuous",
                     choices=["continuous", "static", "both"])
+    ap.add_argument("--tokens-out", default="",
+                    help="write the completions' tokens and, for every "
+                         "token, the top logits of the step that emitted "
+                         "it and their row's standard deviation (JSON: "
+                         "{\"tokens\": {rid: tokens}, \"logits\": {rid: "
+                         "[[ids, values, std], ...]}}) to this file (rank 0)")
+    ap.add_argument("--replay", default="",
+                    help="another run's --tokens-out file (the same "
+                         "trace): emit its tokens in place of the argmax, "
+                         "so that with --tokens-out the two runs' logits "
+                         "meet at every token")
     ap.add_argument("--forbid-plan-compiles", action="store_true",
                     help="fail if planning runs a measured step on the card "
                          "(CI guard; incompatible with --backend cuda)")
@@ -283,11 +487,31 @@ def main(argv=None):
                  "BlockAllocator ledger)")
     if args.deadline < 0:
         ap.error("--deadline must be >= 0")
+    if args.model_parallel < 1:
+        ap.error("--model-parallel must be >= 1")
 
     dev = require_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.depth:
+        cfg = depth_variant(cfg, args.depth)
+    backend = args.dist_backend or ("nccl" if dev.type == "cuda"
+                                    else "gloo")
+    live = dist.is_available() and dist.is_initialized()
+    if not live:
+        world = (int(os.environ["WORLD_SIZE"]) if LM.under_torchrun()
+                 else args.model_parallel)
+        if world > 1:
+            if args.mesh == "":
+                SCH.check_serving_mesh(cfg, XP.host_execution(
+                    cfg, ShapeConfig("serve", DECODE, 1, 1), MemoryPlan(),
+                    world, args.model_parallel).mesh_shape)
+            return LM.spawn_ranks(LM.cli_rank, world, backend, dev.type,
+                                  args=(main, argv))[0]
+    world = dist.get_world_size() if live else 1
+    if live and dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
     trace = synthetic_trace(args.requests, vocab_size=cfg.vocab_size,
                             seed=args.seed, prompt_lens=args.prompt_lens,
                             gen_lens=args.gen_lens,
@@ -295,7 +519,7 @@ def main(argv=None):
                             prefix_len=args.prefix_len,
                             slo_classes=args.slo)
     context = args.context or trace_context(trace)
-    n_devices = 1
+    n_devices = world
     shape = ShapeConfig("serve_trace", DECODE, context,
                         max(args.max_slots, 1))
     budget = (args.hbm_budget_gb * 2**30) if args.hbm_budget_gb else None
@@ -334,6 +558,7 @@ def main(argv=None):
                         prefill_kernel=args.prefill_kernel,
                         chunk=args.chunk_prefill)
     measurer = None
+    mesh = None
     try:
         if args.mesh == "auto":
             if args.backend == "cuda":
@@ -345,8 +570,13 @@ def main(argv=None):
         else:
             host = XP.host_execution(cfg, shape, MemoryPlan(),
                                      n_devices, args.model_parallel)
+            SCH.check_serving_mesh(cfg, host.mesh_shape)
+            if n_devices > 1:
+                mesh = LM.build_mesh(host.mesh_shape)
             if args.backend == "cuda":
-                measurer = MM.CudaMeasurer(host.mesh_shape, device=dev)
+                measurer = MM.CudaMeasurer(
+                    host.mesh_shape, device=dev,
+                    group=mesh.groups["model"] if mesh else None)
             else:
                 measurer = MM.SimulatedMeasurer(host.mesh_shape)
             pinned = SP.serving_space(
@@ -357,7 +587,10 @@ def main(argv=None):
                 kv_quants=((args.kv_quant,) if args.kv == "paged"
                            else ("none",)),
                 kv_retains=((args.kv_retain,) if args.kv == "paged"
-                            else (0,)))
+                            else (0,)),
+                # the engine splits its cache over kv heads on a model axis
+                kv_shards=(("heads",) if host.mesh_shape.get("model", 1) > 1
+                           else ("heads", "seq")))
             cls, splan = XP.plan_serving(cfg, shape, n_devices=n_devices,
                                          hbm_budget=budget,
                                          measurer=measurer, space=pinned,
@@ -371,6 +604,16 @@ def main(argv=None):
     print(f"WSMC[serving/{args.backend}]: {cls.category.value} -> "
           f"{splan.describe()}")
     print("trace:", describe_trace(trace))
+    mesh_shape = splan.execution.mesh_shape
+    SCH.check_serving_mesh(cfg, mesh_shape, splan.execution.plan.kv_shard)
+    if n_devices > 1 and mesh is None:
+        n = 1
+        for v in mesh_shape.values():
+            n *= int(v)
+        if n != n_devices:
+            raise ValueError(f"the plan's mesh {mesh_shape} uses {n} of "
+                             f"the {n_devices} ranks")
+        mesh = LM.build_mesh(mesh_shape)
 
     n_slots = splan.slots(cap=min(args.max_slots, len(trace)))
     if n_slots < 1:
@@ -400,7 +643,16 @@ def main(argv=None):
 
     # -- serve --------------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = init_params(gen, cfg, device=dev)
+    specs = None
+    if mesh is not None:
+        # this rank's shards of the one-rank params: the same draws, each
+        # leaf cut as it is drawn
+        specs = S.param_specs(cfg, init_params(None, cfg, device="meta"),
+                              S.default_strategy(cfg, mesh), mesh)
+        params = S.init_local_params(gen, cfg, dev, specs, mesh)
+    else:
+        params = init_params(gen, cfg, device=dev)
+    group = mesh.groups["model"] if mesh is not None else None
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -408,7 +660,11 @@ def main(argv=None):
                 else [args.policy])
     reports = []
     failures = []
+    force = replay_force(trace, args.replay) if args.replay else None
+    log = None
     for policy in policies:
+        if args.tokens_out or args.replay:
+            log = TokenLog(force=force)
         chunk = 0
         if args.kv == "paged":
             if args.chunk_prefill:       # align up to the block size
@@ -421,7 +677,7 @@ def main(argv=None):
                 kv_block=splan.kv_block, context=context,
                 compact=args.compact, chunk=chunk,
                 kv_quant=args.kv_quant, kv_retain=args.kv_retain,
-                device=dev)
+                device=dev, mesh=mesh, log=log)
             reservation = ("expected"
                            if args.admission == "optimistic"
                            else "worst")
@@ -433,7 +689,8 @@ def main(argv=None):
                                            reservation=reservation)
         else:
             executor = TorchExecutor(params, cfg, n_slots=n_slots,
-                                     context=context, device=dev)
+                                     context=context, device=dev, mesh=mesh,
+                                     log=log)
             allocator = None
 
         def mk_stats():
@@ -471,8 +728,9 @@ def main(argv=None):
                   f"evictions={report.evictions}")
         if args.measure_agreement:
             from repro_torch.serving.quality import token_agreement
-            agree = token_agreement(params, cfg, trace, report,
-                                    context=context, device=dev)
+            with comm.model_axis(group):
+                agree = token_agreement(params, cfg, trace, report,
+                                        context=context, device=dev)
             print(f"  {agree.describe()}")
         if chaos:
             # prove the harness didn't corrupt anything: the drained
@@ -502,16 +760,30 @@ def main(argv=None):
                       f"token-identical to fault-free replay")
         reports.append(report)
 
+    res, tra = predicted_bytes(
+        cfg, shape, splan, cls, n_slots, n_blocks,
+        paged_kw.get("seq_lens", ()), args.compact, args.chunk_prefill)
     if dev.type == "cuda":
         peak = torch.cuda.max_memory_allocated(dev)
-        res, tra = predicted_bytes(
-            cfg, shape, splan, cls, n_slots, n_blocks,
-            paged_kw.get("seq_lens", ()), args.compact,
-            args.chunk_prefill)
         print(f"memory: torch.cuda.max_memory_allocated() {peak} B; "
               f"predicted resident {res:.0f} B + transient {tra:.0f} B = "
               f"{res + tra:.0f} B; measured / predicted "
               f"{peak / (res + tra):.4f}")
+    digest = tokens_digest(reports)
+    print(f"tokens digest {digest}")
+    if mesh is None and hasattr(executor, "schedule_digest"):
+        print(f"schedule digest {executor.schedule_digest}")
+    if args.tokens_out and (mesh is None or mesh.rank == 0):
+        tokens, records = token_records(trace, reports, log)
+        with open(args.tokens_out, "w") as f:
+            json.dump({"tokens": tokens, "logits": records}, f)
+    plan_line = f"{cls.category.value} -> {splan.describe()}"
+    planning = (_planning_peaks(cfg, measurer, splan.execution.mesh_shape)
+                if isinstance(measurer, MM.CudaMeasurer) else [])
+    if mesh is not None and _report_ranks(
+            cfg, mesh, specs, params, executor, splan, shape, n_slots,
+            n_blocks, res + tra, dev, digest, plan_line, planning):
+        return 1
     if args.policy == "both" and len(reports) == 2:
         cont, stat = reports
         print(f"occupancy: continuous={cont.occupancy():.3f} vs "

@@ -53,7 +53,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-import sys
 import time
 
 import torch
@@ -146,14 +145,6 @@ def parse_mesh(spec: str) -> dict:
             raise ValueError(f"duplicate mesh axis {axis!r} in {spec!r}")
         out[axis] = int(n)
     return out
-
-
-def _rank(device, argv):
-    """One spawned rank of the CLI: rank 0 prints, the others are
-    silent."""
-    if dist.get_rank() != 0:
-        sys.stdout = open(os.devnull, "w")
-    return main(argv)
 
 
 def _report_ranks(mesh, params, dev, before, steps):
@@ -253,8 +244,8 @@ def main(argv=None):
                                  f"torchrun started {world}")
             world = n
         if world > 1:
-            return LM.spawn_ranks(_rank, world, backend, dev.type,
-                                  args=(argv,))[0]
+            return LM.spawn_ranks(LM.cli_rank, world, backend, dev.type,
+                                  args=(main, argv))[0]
     world = dist.get_world_size() if live else 1
     if live and dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())

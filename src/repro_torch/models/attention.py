@@ -132,23 +132,24 @@ def _seq_attention(q, k, v, qpos, kpos, blk: BlockSpec,
 # ---------------------------------------------------------------------------
 
 def cache_shapes(cfg: ModelConfig, blk: BlockSpec, batch: int,
-                 context: int, dtype=torch.bfloat16):
+                 context: int, dtype=torch.bfloat16, model_parallel: int = 1):
     """{leaf: (shape, dtype)} of a per-lane ring of cache_len(context)
-    slots."""
+    slots, at this rank's n_kv_heads / model_parallel heads."""
     L = blk.cache_len(context)
-    shape = (batch, L, cfg.n_kv_heads, cfg.resolved_head_dim)
+    shape = (batch, L, cfg.n_kv_heads // model_parallel,
+             cfg.resolved_head_dim)
     return {"k": (shape, dtype), "v": (shape, dtype),
             "pos": ((batch, L), torch.int32)}
 
 
 def cache_init(cfg: ModelConfig, blk: BlockSpec, batch: int, context: int,
-               dtype=torch.bfloat16, device="cuda"):
+               dtype=torch.bfloat16, device="cuda", model_parallel: int = 1):
     """An empty per-lane ring of cache_len(context) slots (pos -1)."""
     return {k: (torch.full(sh, -1, dtype=dt, device=device)
                 if dt == torch.int32 else
                 torch.zeros(sh, dtype=dt, device=device))
-            for k, (sh, dt) in cache_shapes(cfg, blk, batch, context,
-                                            dtype).items()}
+            for k, (sh, dt) in cache_shapes(cfg, blk, batch, context, dtype,
+                                            model_parallel).items()}
 
 
 def _cache_from_prefill(k, v, positions, blk: BlockSpec, context: int):
@@ -562,10 +563,18 @@ def attn_apply(params, cfg: ModelConfig, blk: BlockSpec, x, positions,
     Returns (y [b, s, d], cache, aux dict). A cache passed in is updated in
     place and returned. `aux` carries "attn_mass" [b, max_blocks] on paged
     decode when settings.track_mass; empty otherwise.
+
+    Head counts come from the weights: under tensor parallelism `wq` / `wk`
+    / `wv` hold this rank's columns — K / model kv heads, each with its
+    full group of G query heads, since the flattened q and kv dims are
+    K-major — and the cache this rank's kv heads; `wo` holds the matching
+    rows, and its partial product is summed over the model axis in f32
+    (`layers.out_proj`). head_dim stays the config's.
     """
     b, s, d = x.shape
-    K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    G = cfg.q_group
+    hd = cfg.resolved_head_dim
+    K = params["wk"].shape[-1] // hd
+    G = params["wq"].shape[-1] // hd // K
     h = layers.rmsnorm(params["norm"], x, cfg.norm_eps)
     q = layers.matmul(h, params["wq"]).reshape(b, s, K, G, hd)
     k = layers.matmul(h, params["wk"]).reshape(b, s, K, hd)
@@ -611,6 +620,6 @@ def attn_apply(params, cfg: ModelConfig, blk: BlockSpec, x, positions,
                 "paged cache needs block_tables for whole-prompt prefill"
             write_prompt_kv(cache, block_tables, k, v, positions)
 
-    o = o.reshape(b, s, cfg.n_heads * hd)
-    y = layers.matmul(o, params["wo"])
+    o = o.reshape(b, s, K * G * hd)
+    y = layers.out_proj(o, params["wo"], cfg.n_heads * hd)
     return y, new_cache, aux

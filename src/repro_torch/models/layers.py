@@ -4,12 +4,24 @@ embedding / LM head. Plain functions over tensors and dicts of tensors.
 Compute convention (the reference package's): params in cfg.param_dtype
 (bf16), projection matmuls in the working dtype, norms / softmax / logits in
 f32. Random initialisers take an explicit `torch.Generator` and `device`.
+
+Tensor parallelism (serving over a mesh's "model" axis): inside
+`parallel.comm.model_axis` a row-parallel projection's weight and the
+embedding table are this rank's shards of the axis in force (the serving
+mesh's checks make the rows split over it; a weight whose rows disagree
+with the axis raises), and each combines the pieces over that axis's
+group. A row-parallel projection (`out_proj`) sums f32 partial products and rounds
+once to the activation dtype, as one rank's matmul rounds its f32
+accumulator once; a vocab-sharded table embeds by a masked row gather and
+a sum, and its LM head gathers the f32 logits along the vocab.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel import comm
 
 INIT_STD = 0.02
 
@@ -55,6 +67,27 @@ def dense_init(gen, in_dim: int, out_dim: int, dtype, device,
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Projection matmul over the last axis of x, output in x.dtype."""
     return torch.matmul(x, w)
+
+
+def _check_shard(w: torch.Tensor, rows: int, what: str) -> None:
+    """Raises unless `w` holds its share of the whole weight's `rows` rows
+    over the model axis in force (all of them outside one)."""
+    m = comm.model_size()
+    if w.shape[0] * m != rows:
+        raise ValueError(f"{what}: {w.shape[0]} rows on a model axis of {m}, "
+                         f"the whole weight has {rows}")
+
+
+def out_proj(x: torch.Tensor, w: torch.Tensor, rows: int) -> torch.Tensor:
+    """x @ w, where the full weight has `rows` rows. Inside a model axis w
+    is this rank's rows of a row-parallel projection (x holds the matching
+    columns): its f32 partial product is summed over the axis and rounded
+    once to x's dtype (two bf16 partials summed would round twice)."""
+    _check_shard(w, rows, "row-parallel projection")
+    if comm.model_size() == 1:
+        return matmul(x, w)
+    part = torch.matmul(x.float(), w.float())
+    return comm.tp_sum(part).to(x.dtype)
 
 
 def einsum_f32(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -202,9 +235,21 @@ def embed_init(gen, cfg, device):
 def embed_lookup(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     """Token embedding as a row gather (the reference package's one-hot
     matmul form computes exactly the same rows; it exists there for the
-    sake of a sharded table)."""
+    sake of a sharded table). Inside a model axis the table is this
+    rank's rows of the padded vocab: it gathers the tokens it holds, zeros
+    elsewhere, and sums over the axis (one row and zeros: exact)."""
     table = params["table"]
-    x = table[tokens.long()]
+    rows = table.shape[0]
+    if comm.model_size() == 1:
+        x = table[tokens.long()]
+    else:
+        _check_shard(table, cfg.padded_vocab_size, "embedding table")
+        idx = tokens.long() - comm.model_rank() * rows
+        hit = (idx >= 0) & (idx < rows)
+        x = torch.where(hit[..., None], table[idx.clamp(0, rows - 1)],
+                        torch.zeros((), dtype=table.dtype,
+                                    device=table.device))
+        x = comm.tp_sum(x, kind="tp_embed")
     # gemma-style scale, applied in the table's dtype
     return x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype,
                             device=x.device)
@@ -217,7 +262,11 @@ _HEAD_SLICE = 16384
 def lm_head(params, cfg, x: torch.Tensor) -> torch.Tensor:
     """x: [b, s, d] -> logits [b, s, V] in f32 (f32 accumulation AND f32
     output, so near-ties in the argmax are not decided by a bf16 rounding
-    of the logits). The table is upcast a slice of vocab rows at a time."""
+    of the logits). The table is upcast a slice of vocab rows at a time.
+    Inside a model axis the table is vocab-sharded: this rank computes (and
+    soft-caps) its columns, then gathers the axis's along the vocab, in
+    coordinate order, so the argmax of the gathered logits keeps one
+    rank's first-index rule on ties."""
     table = params["table"]
     xf = x.float()
     V = table.shape[0]
@@ -230,6 +279,9 @@ def lm_head(params, cfg, x: torch.Tensor) -> torch.Tensor:
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         logits = torch.tanh(logits / c) * c
+    if comm.model_size() > 1:
+        _check_shard(table, cfg.padded_vocab_size, "LM head")
+        logits = comm.tp_gather_last(logits)
     return logits
 
 

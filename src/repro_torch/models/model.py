@@ -15,6 +15,12 @@ with prefix embeddings before the tokens for the modality-stub archs; the
 prefill that builds ring caches and recurrent states (`build_cache`) or
 writes a paged pool (and its per-lane rings and states), and decode and
 chunk-append forwards against a cache.
+
+Serving runs tensor-parallel over a mesh's "model" axis inside
+`parallel.comm.model_axis`: attention and the dense MLP are column-
+parallel in (q / k / v, wi) and row-parallel out (wo, summed in f32), the
+embedding and LM head vocab-sharded, the norms replicated; caches hold
+this rank's kv heads (`init_cache(..., model_parallel=)`).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from repro_torch.configs.base import (ATTN, MLP_DENSE, MLP_MOE, MLP_NONE,
                                       ModelConfig)
 from repro_torch.kernels.ops import MLSTM_BACKENDS
 from repro_torch.models import attention, layers, moe, recurrent
+from repro_torch.parallel import comm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +85,9 @@ def mlp_init(gen, cfg: ModelConfig, device, repeats: int = 0):
 
 
 def mlp_apply(params, cfg: ModelConfig, x):
+    """The dense MLP. Tensor-parallel: `wi` holds this rank's columns (a
+    GLU's [gate_r | val_r], parallel.sharding), `wo` the matching rows,
+    summed over the model axis in f32 (layers.out_proj)."""
     h = layers.rmsnorm(params["norm"], x, cfg.norm_eps)
     up = layers.matmul(h, params["wi"])
     if layers.is_glu(cfg.activation):
@@ -85,7 +95,7 @@ def mlp_apply(params, cfg: ModelConfig, x):
         act = layers.glu_combine(cfg.activation, gate, val)
     else:
         act = layers.ACTIVATIONS[cfg.activation](up)
-    return layers.matmul(act, params["wo"])
+    return layers.out_proj(act, params["wo"], cfg.d_ff)
 
 
 # ---------------------------------------------------------------------------
@@ -128,12 +138,15 @@ def state_shapes(cfg: ModelConfig, blk: BlockSpec, batch: int):
 
 
 def block_cache_init(cfg: ModelConfig, blk: BlockSpec, batch: int,
-                     context: int, dtype=torch.bfloat16, device="cuda"):
-    """An empty ring cache (attention) or a zero state (recurrent)."""
+                     context: int, dtype=torch.bfloat16, device="cuda",
+                     model_parallel: int = 1):
+    """An empty ring cache (attention; this rank's n_kv_heads /
+    model_parallel heads) or a zero state (recurrent)."""
     _check_block(blk)
     if blk.mixer == ATTN:
         return attention.cache_init(cfg, blk, batch, context, dtype=dtype,
-                                    device=device)
+                                    device=device,
+                                    model_parallel=model_parallel)
     return recurrent._zeros(state_shapes(cfg, blk, batch), device)
 
 
@@ -227,19 +240,23 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
 
 
 def init_cache(cfg: ModelConfig, batch: int, context: int,
-               dtype=torch.bfloat16, device="cuda"):
+               dtype=torch.bfloat16, device="cuda", model_parallel: int = 1):
     """Cache tree mirroring the params layout (stacked over repeats): every
-    ring empty (pos -1), every recurrent state zero. Raises if `device` is
-    CUDA and there is no CUDA device."""
+    ring empty (pos -1), every recurrent state zero; rings at this rank's
+    n_kv_heads / model_parallel heads. Raises if `device` is CUDA and there
+    is no CUDA device."""
     device = require_device(device)
 
+    def one(blk):
+        return block_cache_init(cfg, blk, batch, context, dtype, device,
+                                model_parallel)
+
     def stacked(blk):
-        one = block_cache_init(cfg, blk, batch, context, dtype, device)
-        return {k: torch.stack([v] * cfg.repeats) for k, v in one.items()}
+        return {k: torch.stack([v] * cfg.repeats)
+                for k, v in one(blk).items()}
 
     return {"units": [stacked(blk) for blk in cfg.unit],
-            "tail": [block_cache_init(cfg, blk, batch, context, dtype, device)
-                     for blk in cfg.tail]}
+            "tail": [one(blk) for blk in cfg.tail]}
 
 
 def _tree_index(tree, r: int):
@@ -280,7 +297,8 @@ def apply(params, cfg: ModelConfig, tokens, *, positions=None,
     either, the cache returned is None. `aux` holds "lb_loss" and "z_loss"
     (f32 sums over the MoE layers; zeros without one) and, on paged decode
     with settings.attn.track_mass, "attn_mass" (zeros for a MoE arch, as
-    the reference's).
+    the reference's; under tensor parallelism over this rank's heads only:
+    the caller reduces it over the model axis).
 
     Grad mode follows the caller's, so a loss over the cache-free sequence
     path's logits can be differentiated (the training path). The serving
@@ -323,7 +341,8 @@ def apply(params, cfg: ModelConfig, tokens, *, positions=None,
     have_cache = cache is not None
     building = settings.build_cache and not decode and not have_cache
     if building:
-        cache = init_cache(cfg, b, ctx, dtype=x.dtype, device=x.device)
+        cache = init_cache(cfg, b, ctx, dtype=x.dtype, device=x.device,
+                           model_parallel=comm.model_size())
 
     def run_block(p, blk, x, c):
         x, nc, aux = block_apply(p, cfg, blk, x, pos,

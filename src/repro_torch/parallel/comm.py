@@ -1,7 +1,9 @@
 """The port's collectives over `torch.distributed` process groups: all-reduce,
 all-gather, reduce-scatter, broadcast and point-to-point send / receive,
 and the autograd Function that all-gathers a weight shard in the forward
-and reduce-scatters its gradient in the backward.
+and reduce-scatters its gradient in the backward; and the forward
+collectives of tensor parallelism over a mesh's `model` group
+(`model_axis`, `tp_sum`, `tp_gather_last`).
 
 A group's backend is the one its process group was made with (the caller
 chose it: `launch.mesh.spawn_ranks`, `torchrun`).
@@ -26,9 +28,17 @@ chose it: `launch.mesh.spawn_ranks`, `torchrun`).
 Ranks of a group are numbered as `launch.mesh.Mesh` makes them: a group
 along one mesh axis lists its global ranks in the order of that axis's
 coordinate, so group rank = coordinate.
+
+Tensor parallelism (serving, Megatron-style): inside `model_axis(group)`
+the model's layers find their weights cut over `group` (column-parallel
+q / k / v / wi, row-parallel wo, a vocab-sharded table) and combine them
+with `tp_sum` (f32 partial products summed, rounded once by the caller)
+and `tp_gather_last` (vocab-sharded logits gathered along the last dim).
+Forward only: no gradient flows through them.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
 
@@ -41,6 +51,13 @@ import torch.distributed as dist
 # collectives are queued on the stream, so neither counts them.
 staged_bytes = 0
 seconds = 0.0
+# staged_bytes split by call kind: the collective's name, or the label its
+# caller gave ("tp_partial_sum", "tp_vocab_gather", "tp_embed", "tp_mass")
+staged_by_kind = collections.Counter()
+_kind = None
+
+# the model group tensor parallelism runs over (model_axis), None outside
+_model_group = None
 
 
 def _gloo(group) -> bool:
@@ -48,23 +65,32 @@ def _gloo(group) -> bool:
 
 
 @contextlib.contextmanager
-def _clock(device: torch.device, group):
-    """Adds a gloo collective's host time to `seconds`. For a CUDA tensor
-    the card is synchronised first, so the time is the collective's and
-    not that of the kernels queued before it (its staging copy would wait
-    for them anyway). An nccl collective is neither synchronised nor
-    timed: it runs on the stream, beside the compute."""
-    global seconds
+def _clock(device: torch.device, group, kind: str):
+    """Adds a gloo collective's host time to `seconds` and names the kind
+    its staged bytes count under. For a CUDA tensor the card is
+    synchronised first, so the time is the collective's and not that of
+    the kernels queued before it (its staging copy would wait for them
+    anyway). An nccl collective is neither synchronised nor timed: it runs
+    on the stream, beside the compute."""
+    global seconds, _kind
     if not _gloo(group):
         yield
         return
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
+    prev, _kind = _kind, kind
     try:
         yield
     finally:
+        _kind = prev
         seconds += time.perf_counter() - t0
+
+
+def _add_staged(n: int):
+    global staged_bytes
+    staged_bytes += n
+    staged_by_kind[_kind] += n
 
 
 def _staged(t: torch.Tensor, group) -> bool:
@@ -72,15 +98,13 @@ def _staged(t: torch.Tensor, group) -> bool:
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
-    global staged_bytes
-    staged_bytes += t.numel() * t.element_size()
+    _add_staged(t.numel() * t.element_size())
     h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     return h.copy_(t.detach())
 
 
 def _to_device(h: torch.Tensor, device) -> torch.Tensor:
-    global staged_bytes
-    staged_bytes += h.numel() * h.element_size()
+    _add_staged(h.numel() * h.element_size())
     return h.to(device)
 
 
@@ -98,22 +122,24 @@ def group_size(group) -> int:
     return dist.get_world_size(group)
 
 
-def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+def all_reduce(t: torch.Tensor, group, op: str = "sum",
+               kind: str = "all_reduce") -> torch.Tensor:
     """A new tensor: the sum (or "max") of `t` over the group."""
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    with _clock(t.device, group):
+    with _clock(t.device, group, kind):
         buf = _buffer(t, group)
         dist.all_reduce(buf, op=red, group=group)
         return _back(buf, t)
 
 
-def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+def all_gather(t: torch.Tensor, group, dim: int = 0,
+               kind: str = "all_gather") -> torch.Tensor:
     """The group's tensors concatenated along `dim`, in group-rank order
     (each rank's `t` of the same shape), on `t`'s device; contiguous, as
     `sharding.Gatherer` assumes when it re-gathers a saved weight."""
-    global staged_bytes
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    with _clock(t.device, group):
+    dim = dim % t.dim()
+    with _clock(t.device, group, kind):
         if not _gloo(group):
             x = t.detach().movedim(dim, 0).contiguous()
             out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
@@ -127,7 +153,7 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
         full = torch.zeros(shape, dtype=t.dtype, pin_memory=staged)
         full.narrow(dim, r * k, k).copy_(t.detach())
         if staged:
-            staged_bytes += t.numel() * t.element_size()
+            _add_staged(t.numel() * t.element_size())
         dist.all_reduce(full.view(torch.uint8), group=group)
         return _back(full, t)
 
@@ -136,7 +162,7 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """This rank's chunk along `dim` of the sum of `t` over the group, on
     `t`'s device."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    with _clock(t.device, group):
+    with _clock(t.device, group, "reduce_scatter"):
         if not _gloo(group):
             x = t.detach().movedim(dim, 0).contiguous()
             out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
@@ -151,7 +177,7 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 def broadcast(t: torch.Tensor, group, src: int) -> torch.Tensor:
     """A new tensor: `t` of the rank whose GLOBAL rank is `src`, on every
     rank of the group (each passes a tensor of the same shape and dtype)."""
-    with _clock(t.device, group):
+    with _clock(t.device, group, "broadcast"):
         buf = _buffer(t, group)
         dist.broadcast(buf, src=src, group=group)
         return _back(buf, t)
@@ -172,7 +198,7 @@ def isend(t: torch.Tensor, dst: int, group, tag: int = 0) -> Pending:
     """Start sending `t` to GLOBAL rank `dst`; wait() the result before
     the step ends. (nccl ignores the tag: sends to one peer arrive in the
     order they were made, as the pipeline's are received.)"""
-    with _clock(t.device, group):
+    with _clock(t.device, group, "send"):
         buf = _to_host(t) if _staged(t, group) else t.detach().contiguous()
         return Pending(dist.isend(buf, dst=dst, group=group, tag=tag), buf)
 
@@ -182,7 +208,7 @@ def recv(shape, dtype, device, src: int, group, tag: int = 0
     """Receive a tensor of `shape` and `dtype` from GLOBAL rank `src`, onto
     `device`."""
     dev = torch.device(device)
-    with _clock(dev, group):
+    with _clock(dev, group, "recv"):
         if dev.type != "cuda" or not _gloo(group):
             buf = torch.empty(shape, dtype=dtype, device=dev)
             dist.recv(buf, src=src, group=group, tag=tag)
@@ -204,3 +230,53 @@ class AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return reduce_scatter(grad, ctx.group, ctx.dim), None, None
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the model group (forward only)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def model_axis(group):
+    """Run the enclosed model code tensor-parallel over `group` (a mesh's
+    "model" group); None, or a group of one rank, runs it whole."""
+    global _model_group
+    prev = _model_group
+    _model_group = (group if group is not None
+                    and dist.get_world_size(group) > 1 else None)
+    try:
+        yield
+    finally:
+        _model_group = prev
+
+
+def model_group():
+    """The group `model_axis` set; raises outside it (a weight cut over a
+    model axis met with no group to combine its pieces over)."""
+    if _model_group is None:
+        raise RuntimeError("a tensor-parallel weight shard outside "
+                           "comm.model_axis(group)")
+    return _model_group
+
+
+def model_size() -> int:
+    """Ranks of the model axis in force (1 outside `model_axis`)."""
+    return 1 if _model_group is None else dist.get_world_size(_model_group)
+
+
+def model_rank() -> int:
+    """This rank's coordinate on the model axis (0 outside `model_axis`)."""
+    return 0 if _model_group is None else dist.get_rank(_model_group)
+
+
+def tp_sum(t: torch.Tensor, kind: str = "tp_partial_sum") -> torch.Tensor:
+    """The sum of `t` over the model group, in `t`'s dtype (f32 partial
+    products: the caller rounds the sum once)."""
+    return all_reduce(t, model_group(), kind=kind)
+
+
+def tp_gather_last(t: torch.Tensor) -> torch.Tensor:
+    """The model group's shards of `t` concatenated along its last dim, in
+    coordinate order (vocab-sharded logits)."""
+    return all_gather(t, model_group(), dim=t.dim() - 1,
+                      kind="tp_vocab_gather")

@@ -24,14 +24,26 @@ take the reference's ("layers",) + ... spec.
 Nothing is placed with DTensor: every rank holds plain local tensors (the
 hand kernels take them), `local_shard` cuts them, and `Gatherer` all-gathers
 a unit's weights just before the unit runs, keeping what autograd saves of
-them as the shard. This module imports torch only inside the functions that
-run collectives: the planner imports it.
+them as the shard. This module imports torch only inside the functions
+that run collectives: the planner imports it.
+
+The spec tree's "model" entries execute for serving (tensor parallelism:
+the rank's heads, FFN columns and vocab rows stay local,
+`parallel.comm.model_axis` combines them). A GLU MLP's `wi` holds
+[gate | val] on its last dim (2 x d_ff), and `models.model.mlp_apply`
+splits it in two: a rank's shard of that dim is its slice of each half,
+[gate_r | val_r], not a contiguous cut (which would give rank 0 all of
+the gate). `local_slice(..., glu=True)`, `local_shard(..., cfg=)` and
+`init_local_params` cut such leaves so; the element count is the spec
+tree's shard either way.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel import axes as pax
@@ -263,26 +275,57 @@ def _slices(shape, spec, mesh):
     return tuple(out)
 
 
-def local_slice(x, spec, mesh):
-    """This rank's block of `x` (a torch tensor or numpy array; a view)."""
-    return x[_slices(x.shape, spec, mesh)]
+def local_slice(x, spec, mesh, glu: bool = False):
+    """This rank's block of `x` (a torch tensor or numpy array; a view).
+    With `glu` the last dim is [gate | val] and each half is cut alike: the
+    block is [gate_r | val_r] (a copy where the last dim splits)."""
+    sl = _slices(x.shape, spec, mesh)
+    last = sl[-1] if sl else None
+    if not glu or last is None or last.stop - last.start == x.shape[-1]:
+        return x[sl]
+    half, n = x.shape[-1] // 2, last.stop - last.start
+    if x.shape[-1] % 2 or n % 2:
+        raise ValueError(f"GLU dim {x.shape[-1]} does not split in halves "
+                         f"over {spec[-1]}")
+    lo = last.start // 2
+    parts = [x[sl[:-1] + (slice(h + lo, h + lo + n // 2),)]
+             for h in (0, half)]
+    if isinstance(x, np.ndarray):
+        return np.concatenate(parts, axis=-1)
+    import torch
+    return torch.cat(parts, dim=-1)
+
+
+def is_glu_leaf(cfg: ModelConfig, path) -> bool:
+    """A GLU MLP's `wi` ([gate | val] on its last dim)."""
+    names, _ = _path_names(path)
+    return (bool(names) and names[-1] == "wi" and "mlp" in names
+            and cfg.activation in ("swiglu", "geglu"))
+
+
+def glu_tree(cfg: ModelConfig, tree):
+    """A bool for every leaf of a params tree: is_glu_leaf."""
+    return _map_leaves(lambda path, _: is_glu_leaf(cfg, path), tree)
 
 
 def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
     return tuple(s.stop - s.start for s in _slices(shape, spec, mesh))
 
 
-def local_shard(tree, spec_tree, mesh):
+def local_shard(tree, spec_tree, mesh, cfg: Optional[ModelConfig] = None):
     """This rank's slice of every leaf of `tree` under `spec_tree`, each
-    in storage of its own (the full leaves can be freed)."""
+    in storage of its own (the full leaves can be freed). With `cfg` (a
+    params tree) a GLU `wi` is cut half by half."""
     from repro_torch.tree import tree_map
+    glu = (glu_tree(cfg, tree) if cfg is not None
+           else tree_map(lambda _: False, spec_tree))
 
-    def one(t, spec):
+    def one(t, spec, g):
         import torch
-        return local_slice(t, spec, mesh).clone(
+        return local_slice(t, spec, mesh, g).clone(
             memory_format=torch.contiguous_format)
 
-    return tree_map(one, tree, spec_tree)
+    return tree_map(one, tree, spec_tree, glu)
 
 
 def _gather_axes(spec, mesh, axes):
@@ -443,12 +486,14 @@ def init_local_params(gen, cfg: ModelConfig, device, spec_tree, mesh):
         abstract = init_params(None, cfg, device="meta")
     finally:
         layers._normal = draw
-    spec_of = {id(t): s for (_, t), (_, s) in zip(tree_paths(abstract),
-                                                  tree_paths(spec_tree))}
+    spec_of = {id(t): (s, is_glu_leaf(cfg, p))
+               for (p, t), (_, s) in zip(tree_paths(abstract),
+                                         tree_paths(spec_tree))}
     order, cut = iter([spec_of[id(t)] for t in drawn]), set()
 
     def keep(full):
-        t = local_slice(full, next(order), mesh).clone()
+        spec, glu = next(order)
+        t = local_slice(full, spec, mesh, glu).clone()
         cut.add(id(t))
         return t
 
@@ -457,5 +502,6 @@ def init_local_params(gen, cfg: ModelConfig, device, spec_tree, mesh):
         params = init_params(gen, cfg, device=device)
     finally:
         layers._normal = draw
-    return tree_map(lambda t, s: t if id(t) in cut
-                    else local_slice(t, s, mesh).clone(), params, spec_tree)
+    return tree_map(lambda t, s, g: t if id(t) in cut
+                    else local_slice(t, s, mesh, g).clone(), params,
+                    spec_tree, glu_tree(cfg, params))

@@ -51,9 +51,59 @@ from repro_torch.tree import tree_leaves, tree_map
 
 DATA_AXES = ("pod", "data")
 
-TENSOR_PARALLEL = ("a model axis above 1 (tensor parallelism, expert "
-                   "parallelism, kv_shard='seq') is not ported: ROADMAP "
-                   "queue A item 5")
+TENSOR_PARALLEL = ("training on a model axis above 1 (tensor "
+                   "parallelism's backward, expert parallelism, "
+                   "kv_shard='seq') is not ported: ROADMAP queue A item 5")
+
+_NOT_PORTED = "is not ported: ROADMAP queue A item 5"
+
+
+def serving_mesh_problems(cfg: ModelConfig, mesh_shape,
+                          kv_shard: str = "heads") -> list:
+    """Why serving cannot run on `mesh_shape` ({axis: size}) with the
+    cache layout `kv_shard`: serving is tensor-parallel over "model" on
+    the all-attention dense archs, the cache split over kv heads, every
+    other axis of size 1. Each reason names ROADMAP queue A item 5."""
+    out = []
+    for axis in ("pod", "data", "pipe"):
+        if int(mesh_shape.get(axis, 1)) > 1:
+            out.append(f"serving over a {axis!r} axis above 1 (the paged "
+                       f"pool's blocks sharded over it) {_NOT_PORTED}")
+    m = int(mesh_shape.get("model", 1))
+    if m <= 1:
+        return out
+    if any(b.is_recurrent for b in cfg.blocks()):
+        out.append(f"a model axis above 1 over recurrent blocks (the "
+                   f"'inner' / 'lru' widths) {_NOT_PORTED}")
+    if cfg.is_moe:
+        out.append(f"a model axis above 1 over MoE blocks (expert "
+                   f"parallelism, or tensor parallelism inside the "
+                   f"experts) {_NOT_PORTED}")
+    if cfg.n_kv_heads % m:
+        out.append(f"kv_shard='seq' ({cfg.n_kv_heads} kv heads do not "
+                   f"split over model:{m}; the cache would shard its "
+                   f"sequence) {_NOT_PORTED}")
+    elif kv_shard == "seq":
+        out.append(f"kv_shard='seq' (a plan that shards the cache's "
+                   f"sequence over model:{m}) {_NOT_PORTED}")
+    if cfg.n_heads % m:
+        out.append(f"{cfg.n_heads} query heads that do not split over "
+                   f"model:{m} {_NOT_PORTED}")
+    for name, n in (("padded vocab", cfg.padded_vocab_size),
+                    ("d_ff", cfg.d_ff)):
+        if n % m:
+            out.append(f"a {name} of {n} that does not split over "
+                       f"model:{m} {_NOT_PORTED}")
+    return out
+
+
+def check_serving_mesh(cfg: ModelConfig, mesh_shape,
+                       kv_shard: str = "heads"):
+    """Raise NotImplementedError with serving_mesh_problems' first reason."""
+    problems = serving_mesh_problems(cfg, mesh_shape, kv_shard)
+    if problems:
+        raise NotImplementedError(f"{cfg.name} on {dict(mesh_shape)}: "
+                                  f"{problems[0]}")
 
 
 def _shape_of(mesh):

@@ -121,12 +121,14 @@ def greedy_generate(params, cfg: ModelConfig, prompt_tokens, n_steps: int,
 # ---------------------------------------------------------------------------
 
 def init_slot_pool(cfg: ModelConfig, n_slots: int, context: int,
-                   device="cuda"):
+                   device="cuda", model_parallel: int = 1):
     """The engine's KV / recurrent slot pool: one cache tree whose batch
     axis is the slot index; fresh slots hold pos -1 everywhere (every ring
-    entry masked) and zero recurrent states. Made on `device` (default
-    CUDA; raises without a CUDA device)."""
-    return M.init_cache(cfg, n_slots, context, device=device)
+    entry masked) and zero recurrent states; each ring at this rank's
+    n_kv_heads / model_parallel heads. Made on `device` (default CUDA;
+    raises without a CUDA device)."""
+    return M.init_cache(cfg, n_slots, context, device=device,
+                        model_parallel=model_parallel)
 
 
 def write_cache_slots(cfg: ModelConfig, pool, one, slots):
@@ -205,7 +207,7 @@ def is_paged_block(blk, context: int) -> bool:
 
 def init_paged_pool(cfg: ModelConfig, n_lanes: int, n_blocks: int,
                     block: int, context: int, kv_quant: str = "none",
-                    device="cuda"):
+                    device="cuda", model_parallel: int = 1):
     """The paged serving pool: every paged layer gets block-pool leaves
     (shared across lanes), stacked over repeats like the params.
     `context` must be a multiple of `block` (the executor rounds up).
@@ -221,14 +223,27 @@ def init_paged_pool(cfg: ModelConfig, n_lanes: int, n_blocks: int,
     (windowed / chunked rings shorter than the context) get per-lane rings
     of cache_len(context) slots. Position leaves start at -1 (invalid),
     payloads and states at zero. The pool is made on `device` (default
-    CUDA; raises without a CUDA device)."""
+    CUDA; raises without a CUDA device).
+
+    Under tensor parallelism (`model_parallel` ranks on the model axis)
+    this rank's pool holds its n_kv_heads / model_parallel kv heads: kb /
+    vb (and the ks / vs scales) split over kv heads, every block on every
+    rank, and "pos" whole on each. That is the layout the predictor
+    charges a device (`predictor._attn_ring_bytes`: ceil(kv heads / model)
+    heads, one pos stripe), not the reference's `cache_specs`, whose
+    paged leaves ("kb", "vb") fall to its batch-sharded fallback.
+    Quantization moves nothing: its absmax scale is per (position, kv
+    head)."""
     if context % block:
         raise ValueError(f"paged pool context {context} must be a multiple "
                          f"of the kv block size {block}")
     if kv_quant not in ("none", "int8", "int4"):
         raise ValueError(f"unknown kv_quant {kv_quant!r}")
     hd = cfg.resolved_head_dim
-    K = cfg.n_kv_heads
+    if cfg.n_kv_heads % model_parallel:
+        raise ValueError(f"{cfg.n_kv_heads} kv heads do not split over "
+                         f"{model_parallel} model ranks")
+    K = cfg.n_kv_heads // model_parallel
     if kv_quant == "int4" and hd % 2:
         raise ValueError(f"int4 KV packs nibble pairs; head_dim {hd} "
                          "must be even")
@@ -255,7 +270,8 @@ def init_paged_pool(cfg: ModelConfig, n_lanes: int, n_blocks: int,
         if is_paged_block(blk, context):
             return paged_leaf()
         if blk.is_attn:
-            return A.cache_shapes(cfg, blk, n_lanes, context)
+            return A.cache_shapes(cfg, blk, n_lanes, context,
+                                  model_parallel=model_parallel)
         return M.state_shapes(cfg, blk, n_lanes)
 
     def materialize(spec, lead=()):

@@ -450,7 +450,9 @@ def serving_space(cfg: ModelConfig, shape: ShapeConfig, *,
                   admission: Sequence[str] = (),
                   kv_quants: Sequence[str] = ("none",),
                   kv_retains: Sequence[int] = (0,),
-                  prefill_budgets: Sequence[int] = ()) -> ConfigSpace:
+                  prefill_budgets: Sequence[int] = (),
+                  kv_shards: Sequence[str] = ("heads", "seq")
+                  ) -> ConfigSpace:
     """The serving-engine planning lattice: mesh axes searchable (pipe
     pinned to 1 — the serving runtime is single-shot) and kv_shard a REAL
     knob rather than auto-resolved, because the admission controller cares:
@@ -474,10 +476,11 @@ def serving_space(cfg: ModelConfig, shape: ShapeConfig, *,
     budgets at the cost of slower prompt ramp-in. `plan_serving` scores
     each candidate by `predictor.serving_capacity` (ring) or expected
     admitted concurrency over the block pool (paged) instead of step
-    time."""
+    time. `kv_shards` narrows the kv layouts searched (the port's engine
+    runs "heads" on a model axis above 1)."""
     knobs = [Knob("remat", ("none",)), Knob("microbatches", (1,)),
              Knob("optimizer", ("adamw_f32",)),
-             Knob("kv_shard", ("heads", "seq")),
+             Knob("kv_shard", tuple(kv_shards)),
              Knob("kv_block_size", tuple(kv_blocks)),
              Knob("kv_quant", tuple(kv_quants)),
              Knob("kv_retain", tuple(int(r) for r in kv_retains)),

@@ -24,10 +24,25 @@ Whole-prompt prefill (`prefill_batch`) runs a same-length admission group
 at the smallest lane bucket covering it; each layer attends the prompts
 over themselves (the flash-attention kernel on the card) and writes their
 K/V into the pool through the block tables as it runs.
+
+Both executors take a `mesh` (`launch.mesh.Mesh`, {data: 1, model: M}) to
+serve tensor-parallel: `params` are then this rank's shards
+(`parallel.sharding`), the pool holds this rank's n_kv_heads / M kv heads,
+and every step runs inside `parallel.comm.model_axis`. Each rank runs the
+same host engine: its decisions read only tokens, which the gathered
+logits make equal on every rank, and the attention mass retention ranks
+blocks by, which is summed over the model axis before the engine reads
+it (each rank's covers its own heads only).
+
+Both executors take a `log` (`TokenLog`) that keeps, for every token a
+step emits, the top logits it came from, and can replay another run's
+tokens in place of the argmax: two runs' served logits are then compared
+token by token (the serve CLI's `--tokens-out` and `--replay`).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from collections import Counter
 from typing import Dict, List, Optional, Sequence
 
@@ -36,6 +51,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+from repro_torch.parallel import comm
 from repro_torch.runtime import serve_step as SS
 
 
@@ -59,6 +75,82 @@ def _pow2_buckets(n: int) -> tuple:
     return tuple(out)
 
 
+def _model_axis(cfg: ModelConfig, mesh):
+    """(model group or None, model axis size) of a serving mesh; a mesh
+    this slice does not serve on raises (runtime.schedule)."""
+    if mesh is None:
+        return None, 1
+    from repro_torch.runtime import schedule as SCH
+    SCH.check_serving_mesh(cfg, dict(mesh.shape))
+    m = mesh.axis_size("model")
+    return (mesh.groups["model"] if m > 1 else None), m
+
+
+def history_key(tokens: Sequence[int]) -> str:
+    """The key of a lane's tokens (prompt and tokens emitted so far): what
+    `TokenLog` files the next token's logits under."""
+    return hashlib.sha256(np.asarray(tokens, np.int32).tobytes()).hexdigest()
+
+
+class TokenLog:
+    """The served steps' own logits: for every token a step emits, the
+    top `k` logits (ids and f32 values, largest first) and the standard
+    deviation of the whole row, filed under the `history_key` of the tokens
+    the lane held before it. The executor feeds it the tokens each step
+    writes into a lane (`feed`) and lets it pick the emitted tokens
+    (`pick`): the argmax, or where `force` ({history key: token}) has one,
+    the given token — a replay of another run's tokens, so that the two
+    runs' logits meet at every token they emitted. A lane whose first
+    tokens the executor never saw (a prefix sharer's) files nothing."""
+
+    def __init__(self, k: int = 8, force: Optional[Dict[str, int]] = None):
+        self.k = int(k)
+        self.force = dict(force or {})
+        self.records: Dict[str, tuple] = {}
+        self._held: Dict[int, Optional[List[int]]] = {}
+
+    def feed(self, lane: int, start: int, tokens: Sequence[int]) -> None:
+        """Lane `lane` now holds `tokens` at positions start.. (and drops
+        what it held from there on)."""
+        held = self._held.get(lane) if start else []
+        if held is None or len(held) < start:
+            self._held[lane] = None      # tokens before `start` unknown
+            return
+        self._held[lane] = held[:start] + [int(t) for t in tokens]
+
+    def pick(self, logits: torch.Tensor, lanes: Sequence[int],
+             tokens: Sequence[int]) -> List[int]:
+        """Row j of `logits` [n, V] is lane lanes[j]'s next token, whose
+        argmax is tokens[j]: files the row, returns the tokens emitted."""
+        lg = logits.float()
+        top = torch.topk(lg, min(self.k, lg.shape[-1]), dim=-1)
+        ids, vals = top.indices.cpu().tolist(), top.values.cpu().tolist()
+        std = lg.std(dim=-1).cpu().tolist()
+        out = []
+        for j, lane in enumerate(lanes):
+            held = self._held.get(int(lane))
+            tok = int(tokens[j])
+            if held is not None:
+                key = history_key(held)
+                tok = int(self.force.get(key, tok))
+                self.records[key] = (ids[j], vals[j], std[j])
+            out.append(tok)
+        return out
+
+
+def _emit(ex, logits, rows: Sequence[int],
+          lanes: Sequence[int]) -> List[int]:
+    """Every row's argmax of `logits` [w, V] (`ex._argmax`); with a token
+    log, row rows[j] (lane lanes[j]'s next token) takes the log's pick."""
+    out = [int(t) for t in ex._argmax(logits)]
+    if ex.log is not None and len(rows):
+        rows = list(rows)
+        picked = ex.log.pick(logits[rows], lanes, [out[r] for r in rows])
+        for r, t in zip(rows, picked):
+            out[r] = t
+    return out
+
+
 def _cover(n: int, buckets: Sequence[int]) -> int:
     """Smallest bucket >= n (buckets sorted ascending; n <= max)."""
     for b in buckets:
@@ -78,23 +170,27 @@ class TorchExecutor:
 
     The pool lives on `device` (default "cuda"; raises without a CUDA
     device) and is updated in place by every step. `params` must already be
-    on that device."""
+    on that device (this rank's shards on a `mesh`)."""
 
     def __init__(self, params, cfg: ModelConfig, *, n_slots: int,
                  context: int, settings: Optional[M.ModelSettings] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None, log: Optional[TokenLog] = None):
         self.device = M.require_device(device)
         self.params = params
         self.cfg = cfg
         self.settings = settings
+        self.log = log
         self.n_slots = int(n_slots)
         self.context = int(context)
+        self.group, self.model_parallel = _model_axis(cfg, mesh)
         self.pool = SS.init_slot_pool(cfg, self.n_slots, self.context,
-                                      device=self.device)
+                                      device=self.device,
+                                      model_parallel=self.model_parallel)
         self._prefill_step = SS.make_slot_prefill_step(cfg, settings)
         self._batch_step = SS.make_batch_prefill_step(cfg, settings)
         self._decode_step = SS.make_decode_step(cfg, settings)
         self.prefills = 0
+        self.prefill_calls = 0             # prefill steps run (any width)
         self.decodes = 0
 
     def _dev(self, a, dtype=torch.int32):
@@ -107,11 +203,15 @@ class TorchExecutor:
     @torch.no_grad()
     def prefill(self, slot: int, prompt: Sequence[int]) -> int:
         tokens = self._dev([list(prompt)])
-        logits, self.pool = self._prefill_step(self.params, tokens, slot,
-                                               self.pool,
-                                               context=self.context)
+        if self.log is not None:
+            self.log.feed(slot, 0, prompt)
+        with comm.model_axis(self.group):
+            logits, self.pool = self._prefill_step(self.params, tokens, slot,
+                                                   self.pool,
+                                                   context=self.context)
         self.prefills += 1
-        return int(self._argmax(logits)[0])
+        self.prefill_calls += 1
+        return _emit(self, logits, [0], [slot])[0]
 
     @torch.no_grad()
     def prefill_batch(self, slots: Sequence[int],
@@ -128,12 +228,16 @@ class TorchExecutor:
         for i, (s, pr) in enumerate(zip(slots, prompts)):
             toks[i] = pr
             idx[i] = s
-        logits, self.pool = self._batch_step(
-            self.params, self._dev(toks), self._dev(idx), self.pool,
-            context=self.context)
+            if self.log is not None:
+                self.log.feed(s, 0, pr)
+        with comm.model_axis(self.group):
+            logits, self.pool = self._batch_step(
+                self.params, self._dev(toks), self._dev(idx), self.pool,
+                context=self.context)
         self.prefills += len(slots)        # per-request, like the engine
-        out = self._argmax(logits)
-        return [int(out[i]) for i in range(len(slots))]
+        self.prefill_calls += 1
+        out = _emit(self, logits, range(len(slots)), slots)
+        return out[:len(slots)]
 
     def decode_width(self, n_active: int) -> int:
         """The batch width a decode tick computes at: always the pool's."""
@@ -144,10 +248,16 @@ class TorchExecutor:
                tables=None, lanes=None) -> List[int]:
         t = self._dev(list(tokens))[:, None]
         p = self._dev(list(positions))
-        logits, self.pool = self._decode_step(self.params, t, p, self.pool,
-                                              context=self.context)
+        act = list(lanes if lanes is not None else range(self.n_slots))
+        if self.log is not None:
+            for i in act:
+                self.log.feed(i, positions[i], [tokens[i]])
+        with comm.model_axis(self.group):
+            logits, self.pool = self._decode_step(self.params, t, p,
+                                                  self.pool,
+                                                  context=self.context)
         self.decodes += 1
-        return self._argmax(logits).astype(int).tolist()
+        return _emit(self, logits, act, act)
 
     def compile_counts(self) -> dict:
         """Nothing is compiled here: the reference executor's jit counts
@@ -180,7 +290,7 @@ class PagedTorchExecutor:
 
     The pool lives on `device` (default "cuda"; raises without a CUDA
     device) and is updated in place by every step. `params` must already be
-    on that device.
+    on that device (this rank's shards on a `mesh`).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, n_lanes: int,
@@ -190,7 +300,7 @@ class PagedTorchExecutor:
                  lane_buckets: Optional[Sequence[int]] = None,
                  chunk: int = 0, kv_quant: str = "none",
                  kv_retain: int = 0, track_mass: bool = False,
-                 device="cuda"):
+                 device="cuda", mesh=None, log: Optional[TokenLog] = None):
         if kv_block < 1:
             raise ValueError(f"kv_block must be >= 1, got {kv_block}")
         if kv_retain < 0:
@@ -198,6 +308,7 @@ class PagedTorchExecutor:
         self.device = M.require_device(device)
         self.params = params
         self.cfg = cfg
+        self.log = log
         self.kv_quant = str(kv_quant)
         self.kv_retain = int(kv_retain)
         if self.kv_retain or track_mass:
@@ -231,10 +342,12 @@ class PagedTorchExecutor:
             raise ValueError(f"chunk={self.chunk} must be a multiple "
                              f"of kv_block={self.kv_block}")
         self.has_recurrent = any(not b.is_attn for b in cfg.blocks())
+        self.group, self.model_parallel = _model_axis(cfg, mesh)
         self.pool = SS.init_paged_pool(cfg, self.n_lanes, self.n_blocks + 1,
                                        kv_block, self.context,
                                        kv_quant=self.kv_quant,
-                                       device=self.device)
+                                       device=self.device,
+                                       model_parallel=self.model_parallel)
         self._decode_step = SS.make_paged_decode_step(cfg, settings)
         self._compact_step = SS.make_compact_decode_step(cfg, settings)
         self._chunk_step = SS.make_chunk_prefill_step(cfg, settings)
@@ -257,9 +370,23 @@ class PagedTorchExecutor:
         # tick (only populated when kv_retain or track_mass enables the
         # accounting)
         self._last_mass: Dict[int, np.ndarray] = {}
+        # every block table the steps were given, in order: ranks of one
+        # model axis run one schedule only if their digests agree
+        self._schedule = hashlib.sha256()
 
     def _dev(self, a, dtype=torch.int32):
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+
+    def _tables(self, tbl: np.ndarray) -> torch.Tensor:
+        """A step's block tables on the device, added to the schedule's
+        digest."""
+        self._schedule.update(np.ascontiguousarray(tbl, np.int32).tobytes())
+        return self._dev(tbl)
+
+    @property
+    def schedule_digest(self) -> str:
+        """sha256 of every block table the steps were given so far."""
+        return self._schedule.hexdigest()
 
     @staticmethod
     def _argmax(logits) -> np.ndarray:
@@ -298,15 +425,18 @@ class PagedTorchExecutor:
         lane_arr = np.full((w,), self.n_lanes, np.int32)
         lane_arr[:n] = lanes
         tbl = self._table_array(list(tables) + [[]] * (w - n), w)
+        if self.log is not None:
+            for lane, pr in zip(lanes, prompts):
+                self.log.feed(lane, 0, pr)
         self.shape_calls["prefill"][(w, p)] += 1
         self.rows_real["prefill"] += n
         self.rows_computed["prefill"] += w
-        logits, self.pool = self._prefill_step(
-            self.params, self._dev(toks), self._dev(lane_arr),
-            self._dev(tbl), self.pool, context=self.context)
+        with comm.model_axis(self.group):
+            logits, self.pool = self._prefill_step(
+                self.params, self._dev(toks), self._dev(lane_arr),
+                self._tables(tbl), self.pool, context=self.context)
         self.prefills += n                 # per-request, like the engine
-        out = self._argmax(logits)
-        return [int(out[j]) for j in range(n)]
+        return _emit(self, logits, range(n), lanes)[:n]
 
     def fresh_blocks(self, ids: Sequence[int]) -> None:
         """Invalidate re-linked physical blocks (pos = -1) before decode
@@ -353,16 +483,21 @@ class PagedTorchExecutor:
             tables = [t if i in act else [] for i, t in enumerate(tables)]
         t = self._dev(list(tokens))[:, None]
         p = self._dev(list(positions))
-        tbl = self._dev(self._table_array(tables, self.n_lanes))
+        tbl = self._tables(self._table_array(tables, self.n_lanes))
+        act = [int(i) for i in (lanes if lanes is not None
+                                else range(self.n_lanes))]
+        if self.log is not None:
+            for i in act:
+                self.log.feed(i, positions[i], [tokens[i]])
         self.shape_calls["decode"][(self.n_lanes, self.max_blocks)] += 1
-        logits, self.pool, mass = self._decode_step(
-            self.params, t, p, tbl, self.pool, context=self.context)
+        with comm.model_axis(self.group):
+            logits, self.pool, mass = self._decode_step(
+                self.params, t, p, tbl, self.pool, context=self.context)
         self.decodes += 1
         if mass is not None:
-            m = mass.float().cpu().numpy()
-            act = lanes if lanes is not None else range(len(m))
-            self._last_mass = {int(i): m[int(i)] for i in act}
-        return self._argmax(logits).astype(int).tolist()
+            m = self._mass(mass)
+            self._last_mass = {i: m[i] for i in act}
+        return _emit(self, logits, act, act)
 
     def _decode_compact(self, tokens, positions, tables, lanes) -> List[int]:
         """Pack the active lanes into the smallest covering bucket and run
@@ -384,20 +519,23 @@ class PagedTorchExecutor:
                 raise ValueError(f"lane {i}: table of {len(tables[i])} "
                                  f"blocks exceeds bucketed width {mb}")
             tbl[j, :len(tables[i])] = tables[i]
+            if self.log is not None:
+                self.log.feed(i, positions[i], [tokens[i]])
         self.shape_calls["decode_compact"][(w, mb)] += 1
         self.rows_real["decode_compact"] += len(lanes)
         self.rows_computed["decode_compact"] += w
-        logits, self.pool, mass = self._compact_step(
-            self.params, self._dev(t), self._dev(p), self._dev(tbl),
-            self._dev(lane_arr), self.pool, context=self.context)
+        with comm.model_axis(self.group):
+            logits, self.pool, mass = self._compact_step(
+                self.params, self._dev(t), self._dev(p), self._tables(tbl),
+                self._dev(lane_arr), self.pool, context=self.context)
         self.decodes += 1
         if mass is not None:
-            m = mass.float().cpu().numpy()
+            m = self._mass(mass)
             self._last_mass = {int(i): m[j] for j, i in enumerate(lanes)}
-        out = self._argmax(logits)
+        out = _emit(self, logits, range(len(lanes)), lanes)
         res = [0] * self.n_lanes
         for j, i in enumerate(lanes):
-            res[i] = int(out[j])
+            res[i] = out[j]
         return res
 
     @torch.no_grad()
@@ -431,17 +569,34 @@ class PagedTorchExecutor:
             toks[j, :len(c)] = c
             pos[j, :len(c)] = starts[j] + np.arange(len(c))
             lane_arr[j] = lane
+            if self.log is not None:
+                self.log.feed(lane, starts[j], c)
         self.shape_calls["chunk"][(w, mb)] += 1
         self.rows_real["chunk"] += len(lanes)
         self.rows_computed["chunk"] += w
-        logits, self.pool = self._chunk_step(
-            self.params, self._dev(toks), self._dev(pos), self._dev(tbl),
-            self._dev(lane_arr), self.pool, context=self.context)
+        with comm.model_axis(self.group):
+            logits, self.pool = self._chunk_step(
+                self.params, self._dev(toks), self._dev(pos),
+                self._tables(tbl), self._dev(lane_arr), self.pool,
+                context=self.context)
         self.chunk_calls += 1
         if final is not None:
             self.prefills += sum(bool(f) for f in final)
-        out = self._argmax(logits)
-        return [int(out[j]) for j in range(len(lanes))]
+        done = [j for j in range(len(lanes)) if final is None or final[j]]
+        out = _emit(self, logits, done, [lanes[j] for j in done])
+        return out[:len(lanes)]
+
+    def _mass(self, mass) -> np.ndarray:
+        """A decode tick's per-block attention mass on the host. Under
+        tensor parallelism each rank's is the mean over its own heads: the
+        ranks' shares (mean / model ranks, exact for a power of two) are
+        summed over the model axis, so every rank ranks blocks by the mean
+        over all heads, as one rank does, and evicts the same blocks."""
+        mass = mass.float()
+        if self.group is not None:
+            mass = comm.all_reduce(mass / self.model_parallel, self.group,
+                                   kind="tp_mass")
+        return mass.cpu().numpy()
 
     def block_masses(self) -> Dict[int, np.ndarray]:
         """Per-lane attention mass over the lane's logical blocks from the

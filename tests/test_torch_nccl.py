@@ -1,9 +1,12 @@
 """The parallel layer on nccl, with one card a rank: comm's collectives
-against the same collectives over gloo, and the training CLI on
+against the same collectives over gloo, the training CLI on
 data:2,pipe:2 (FSDP gathers, the 1F1B pipeline's sends, the gradient
 reductions, the mesh checkpoint saved and resumed) against the same runs
-over gloo. Needs two (the collectives) or four (the CLI) CUDA devices and
-skips without them; run on a four-card machine with
+over gloo, and the serve CLI tensor-parallel on model:2 (the f32 partial
+sums, the vocab gather, the retention's attention mass) against the same
+run over gloo. Needs two (the collectives, the serve CLI) or four (the
+training CLI) CUDA devices and skips without them; run on a four-card
+machine with
 
     PYTHONPATH=src python -m pytest -q -s --noconftest -m cuda \
         tests/test_torch_nccl.py
@@ -30,6 +33,10 @@ CLI = ("--arch h2o-danube-1.8b --reduced --depth 4 --seq 256 --batch 8 "
        "--log-every 1 --remat none --microbatches 2 --optimizer adamw_f32 "
        "--device cuda --mesh data:2,pipe:2")
 TIMEOUT = 300
+SERVE = ("--arch mistral-nemo-12b --reduced --depth 2 --kv paged --compact "
+         "--chunk-prefill 16 --kv-block 4 --kv-quant int8 --kv-retain 2 "
+         "--requests 6 --prompt-lens 8,20,40 --gen-lens 4,12 --device cuda "
+         "--model-parallel 2")
 
 
 def _cards(n):
@@ -91,3 +98,30 @@ def test_nccl_mesh_trains_and_resumes_as_gloo(tmp_path):
     got.update(step_n)
     for s in want:
         assert got[s] == pytest.approx(want[s], rel=1e-4), (s, got, want)
+
+
+def _serve(backend):
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *SERVE.split(),
+           "--dist-backend", backend]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=TIMEOUT)
+    print(f"--- serve over {backend}\n{out.stdout}")
+    assert out.returncode == 0, out.stderr[-4000:]
+    digest = re.findall(r"^tokens digest (\w+)$", out.stdout, re.M)
+    ranks = re.findall(r"^rank (\d) \{.*; staged through the host (\d+) B"
+                       r".*; tokens digest (\w+)$", out.stdout, re.M)
+    return digest, ranks
+
+
+def test_nccl_tensor_parallel_serving_emits_gloos_tokens():
+    """The paged engine on model:2 (an int8 pool under retention) over
+    nccl, one card a rank, emits the tokens of the same run over gloo, on
+    every rank, staging nothing through the host."""
+    _cards(2)
+    want, ranks_g = _serve("gloo")
+    got, ranks_n = _serve("nccl")
+    assert len(want) == len(got) == 1 and got == want
+    assert [d for _, _, d in ranks_n] == [want[0]] * 2
+    assert [st for _, st, _ in ranks_n] == ["0", "0"]
+    assert all(int(st) > 0 for _, st, _ in ranks_g)
