@@ -10,6 +10,8 @@
     python3 chip_smoke.py --phases 1,12   # build + the training CLI only
     python3 chip_smoke.py --phases 1,13   # build + MoE and prefix embeds only
     python3 chip_smoke.py --phases 1,14   # build + the parallel layer only
+    python3 chip_smoke.py --phases 1,14 --par-runs "0 m1,d"
+                                          # build + phase 14's model:2 run
     python3 chip_smoke.py --phases 1,15   # build + the dry-run, roofline,
                                           # hillclimb and reports only
     python3 chip_smoke.py --phases 1,16   # build + serving on a model axis
@@ -52,7 +54,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      at heterogeneous positions, inert lanes and empty rings (exact zeros),
      lengths no tile or warp group divides and the ring shapes of phases
      6, 9, 10 and 13; flash and ring decode also at llama4-scout's (G 5)
-     and internvl2-26b's (G 6) heads.
+     and internvl2-26b's (G 6) heads; every kernel a model axis runs at
+     its ranks' head counts (phases 14 and 16).
   3. the main path at full width: mistral-nemo-12b, all 40 layers, random
      bf16 weights from a seed; the capacity model sizes the KV block pool;
      the engine serves a seeded trace of short and long prompts through
@@ -158,25 +161,38 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      through the plain attention and ring decode, the plain run taking
      the kernel run's MoE routes (REL_BOUND).
  14. the parallel layer on the card: the training CLI in subprocesses,
-     h2o-danube-1.8b at full width and depth, [4, 2048], 3 steps, seed 0,
-     --remat none --optimizer adamw_f32, ranks sharing the card over gloo
-     (every collective staged through the host): (0) one rank at 4, 1 and
-     2 microbatches, the losses and gradient norms to match; (a) --mesh pipe:2, 4
-     microbatches (the 1F1B pipeline, 2 ranks); (b) --mesh data:2, 1
-     microbatch (FSDP, 2 ranks), saving a checkpoint at its last step;
-     then (b)'s checkpoint restored onto data:2,pipe:2 (4 ranks), each
-     rank's leaves bit for bit the slices of a one-device restore; (c)
-     --mesh data:2,pipe:2, 2 microbatches (4 ranks); (d) compressed_psum
+     h2o-danube-1.8b at full width, [4, 2048], 3 steps, seed 0,
+     --optimizer adamw_f32, ranks sharing the card over gloo (every
+     collective staged through the host), the runs of a wave (PAR_WAVES)
+     beside each other: (0) one rank at 4, 1 and 2 microbatches at full
+     depth (24 layers), and at 1 and 2 at PAR_CUT (2) layers, the losses
+     and gradient norms to match; (a) --mesh pipe:2, 4 microbatches (the
+     1F1B pipeline, 2 ranks); (b) --mesh data:2, 1 microbatch, PAR_CUT
+     layers (FSDP, 2 ranks), saving a checkpoint at its last step,
+     restored onto one device (each rank's slices of it the state the
+     rank held), onto data:2,pipe:2 (4 ranks) and onto model:2 (2 ranks),
+     each rank's leaves bit for bit the slices of the one-device restore;
+     (c) --mesh data:2,pipe:2, 2 microbatches, PAR_CUT layers (4 ranks);
+     (d) --mesh model:2, 1 microbatch, 24 layers (tensor parallelism, 2
+     ranks), saving a checkpoint restored onto one device and onto data:2
+     as (b)'s; (e) --mesh data:2,model:2, PAR_CUT layers (FSDP over data
+     and tensor parallelism over model, 4 ranks); (f) --mesh model:2
+     --backend cuda, PAR_CUT layers: the online phase classifies and plans
+     (remat, microbatches) from train steps CudaMeasurer measures over the
+     model group, every rank's class and plan one; then compressed_psum
      over a data:2 world on CUDA tensors the size of the largest leaf,
-     within 1.5 x scale. Each run is judged as it ends. Fails on a rank's
-     non-zero exit, step 1's loss more than 1e-4 or its gradient norm
-     more than 1e-3 relative from (0)'s at the same microbatches (later
-     steps' losses 1e-3), per-rank parameter elements other than
-     the spec tree's (pipe:2: predictor.sharded_param_count exactly), or
-     flash launches per rank other than stage layers x microbatches x
-     steps (forward twice under the pipeline's recompute); prints each
+     within 1.5 x scale. Each run is judged as its wave ends. Fails on a
+     rank's non-zero exit, step 1's loss more than 1e-4 or its gradient
+     norm more than 1e-3 relative from the one-rank run's at the same
+     depth and microbatches (later steps' losses 1e-3), per-rank
+     parameter elements other than the spec tree's (pipe:2:
+     predictor.sharded_param_count exactly), flash launches per rank other
+     than stage layers x microbatches x steps (forward twice under the
+     pipeline's recompute or a remat), on a model axis the leaves a rank
+     holds whole (the norms) other than bit-identical on a model group's
+     ranks after the last step, or ranks planning apart; prints each
      rank's max_memory_allocated against the predictor's figure, the step
-     wall and the bytes staged a step.
+     wall and the bytes staged a step, by kind.
  15. the dry-run, the roofline, the hillclimb and the reports, through
      their CLIs' main(argv) in process: (a) the simulate sweep, every arch
      x shape on the 16x16 and 2x16x16 meshes (no cell may fail); (b) four
@@ -196,30 +212,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      summarize and report_experiments over (b)'s cells.
  16. serving on a model axis: the serve CLI in subprocesses on
      --model-parallel M, its ranks sharing the card over gloo (every
-     collective staged through the host), (d) and (e) at once: (a) mistral-nemo-12b at full width
-     and depth on model:2, paged, --compact, --chunk-prefill 256, blocks
+     collective staged through the host), the runs of a wave (TP_WAVES)
+     at once: (a) mistral-nemo-12b at full width and TP_CUT (10) of its
+     40 layers on model:2, paged, --compact, --chunk-prefill 256, blocks
      of 16, a bf16 pool, simulate planning, 8 requests of 64-1024 prompt
-     and 16-32 generated tokens; (b) the same with an int8 pool and
-     --kv-retain 2 (the attention mass summed over the ranks); (c)
-     --backend cuda on 2 requests: CudaMeasurer over the model axis, every
-     rank's class and plan one, the measured per-rank peak of each
-     planning step beside the simulator's; (d) 8 of mistral-nemo-12b's
-     layers on model:4, 4 requests; (e) gemma3-12b at 12 layers on model:2
-     through the slot engine (ring decode on the local and global rings,
-     flash prefill). Each run writes, for every token, the top 8 logits of
-     the step that emitted it (--tokens-out); then one rank of the same
-     CLI and trace, in process, replays the ranks' tokens (--replay) and
-     logs its own. Fails on a rank's non-zero exit, ranks emitting,
-     scheduling or planning apart, one rank scheduling other block tables
-     (retention's drops) under the same tokens, the two sides' top logits
-     more than TP_DRIFT_BOUND of the spread apart at any token or lacking
-     each other's argmax (where the argmaxes differ, trap T2, both gaps
-     are printed), per-rank parameter elements other than the spec tree's,
-     a pool other than the predictor's per-device blocks, or attention
-     launches other than layers x steps a rank; prints each rank's peak
-     against the plan's prediction and the bytes it staged through the
-     host by kind. Phase 2 holds the four kernels at the ranks' head
-     counts.
+     and 16-32 generated tokens; (b) the same at full depth with an int8
+     pool and --kv-retain 2 (the attention mass summed over the ranks); (c)
+     --backend cuda at TP_CUT layers on 2 requests: CudaMeasurer over the
+     model axis, every rank's class and plan one, the measured per-rank
+     peak of each planning step beside the simulator's; (d) 8 of
+     mistral-nemo-12b's layers on model:4, 4 requests; (e) gemma3-12b at
+     12 layers on model:2 through the slot engine (ring decode on the
+     local and global rings, flash prefill). Each run writes, for every
+     token, the top 8 logits of the step that emitted it (--tokens-out);
+     then one rank of the same CLI and trace, in process, replays the
+     ranks' tokens (--replay) and logs its own. Fails on a rank's non-zero
+     exit, ranks emitting, scheduling or planning apart, one rank
+     scheduling other block tables (retention's drops) under the same
+     tokens, the two sides' top logits more than TP_DRIFT_BOUND of the
+     spread apart at any token or lacking each other's argmax (where the
+     argmaxes differ, trap T2, both gaps are printed), per-rank parameter
+     elements other than the spec tree's, a pool other than the
+     predictor's per-device blocks, or attention launches other than
+     layers x steps a rank; prints each rank's peak against the plan's
+     prediction and the bytes it staged through the host by kind. Phase
+     2 holds the four kernels at the ranks' head counts, and the flash
+     forward and backward at phase 14's.
   then: each kernel timed at the largest shape its path launched it at
   (the paged kernels also at every shape phase 3 launched them at, with
   the launches each shape had and the sum of launches x time)
@@ -239,7 +257,6 @@ Without a CUDA device the script exits non-zero and prints no result.
 import argparse
 import contextlib
 import dataclasses
-import hashlib
 from concurrent.futures import ThreadPoolExecutor
 import io
 import json
@@ -379,6 +396,15 @@ PEAK_F32_FLOPS = 67e12
 
 def log(msg):
     print(msg, flush=True)
+
+
+def error_lines(text, tail=60):
+    """A failed run's standard error to log: every line that names an
+    error (each rank's, the first to fail among them), then the last
+    `tail` lines."""
+    lines = text.splitlines()
+    named = [ln for ln in lines[:-tail] if "Error" in ln or "error" in ln]
+    return named + lines[-tail:]
 
 
 def fail(msg):
@@ -1126,6 +1152,23 @@ def phase_kernels():
        qdt=torch.float32, window=128, **DN)
     fb("autograd bf16", fn=flash_autograd_case, b=1, s=512,
        qdt=torch.bfloat16, **DN)
+    # phase 14's per-rank head counts on a model axis (its runs d, e, f):
+    # each rank runs the flash kernels at n_kv_heads / M kv heads, G and hd
+    # unchanged: h2o-danube-1.8b on model:2 (K 4) and model:4 (K 2), causal
+    # under its 4096 window, at its training rows [4, 2048] and at lengths
+    # no tile divides, rows that see nothing among them
+    for K in (4, 2):
+        TPB = dict(K=K, G=4, hd=80, window=4096)
+        f(f"tp K{K} train [4, 2048, {4 * K}, 80] window4096 bf16", b=4,
+          s=2048, **TPB)
+        fb(f"tp K{K} train [4, 2048, {4 * K}, 80] window4096 bf16", b=4,
+           s=2048, **TPB)
+        for qdt in (torch.float32, torch.bfloat16):
+            t = "f32" if qdt == torch.float32 else "bf16"
+            fb(f"tp K{K} G4 hd80 s333 ragged window4096 {t}", b=2, s=333,
+               lens=[333, 200], qdt=qdt, **TPB)
+            fb(f"tp K{K} G4 hd80 s517 blind rows window4096 {t}", b=1,
+               s=517, blind=30, qdt=qdt, **TPB)
     errs["flash_attention_bwd"] = max(bwd_errs.values())
 
     def ml(name, **kw):
@@ -3628,13 +3671,44 @@ PAR_STEPS = 3
 PAR_SEED = 0
 PAR_CLI = ["--arch", TR_ARCH, "--seq", str(TR_SEQ), "--batch", str(TR_BATCH),
            "--steps", str(PAR_STEPS), "--lr", str(TR_LR), "--log-every",
-           "1", "--seed", str(PAR_SEED), "--remat", "none", "--optimizer",
-           "adamw_f32", "--device", "cuda", "--dist-backend", "gloo"]
-# (tag, --mesh, microbatches, the one-rank run whose losses it matches)
-PAR_RUNS = (("0 m4", "", 4, None), ("0 m1", "", 1, None),
-            ("0 m2", "", 2, None),
-            ("a", "pipe:2", 4, "0 m4"), ("b", "data:2", 1, "0 m1"),
-            ("c", "data:2,pipe:2", 2, "0 m2"))
+           "1", "--seed", str(PAR_SEED), "--optimizer", "adamw_f32",
+           "--device", "cuda", "--dist-backend", "gloo"]
+# the depth (layers) that the gloo runs over a data axis (b, c, e) and the
+# online phase's run (f) are cut to, for the script's time limit, and their
+# one-rank runs beside them at that depth (PERF.md lists each cut with the
+# seconds it saved); the one-rank runs at full depth, (a) and (d) keep the
+# config's 24 layers, and no run cuts width
+PAR_CUT = 2
+M1C, M2C = f"0 m1 d{PAR_CUT}", f"0 m2 d{PAR_CUT}"
+CKPT = "ckpt"        # the run saves its checkpoint at its last step
+# (tag, --mesh, microbatches (None: the online phase plans them and the
+# remat), the one-rank run whose losses it matches ("{m}": at its planned
+# microbatches), depth (0: the config's), extra CLI flags)
+PAR_RUNS = (
+    ("0 m4", "", 4, None, 0, ()),
+    ("0 m1", "", 1, None, 0, ()),
+    ("0 m2", "", 2, None, 0, ()),
+    (M1C, "", 1, None, PAR_CUT, ()),
+    (M2C, "", 2, None, PAR_CUT, ()),
+    ("a", "pipe:2", 4, "0 m4", 0, ()),
+    ("b", "data:2", 1, M1C, PAR_CUT, (CKPT,)),
+    ("c", "data:2,pipe:2", 2, M2C, PAR_CUT, ()),
+    ("d", "model:2", 1, "0 m1", 0, (CKPT,)),
+    ("e", "data:2,model:2", 1, M1C, PAR_CUT, ()),
+    ("f", "model:2", None, "0 m{m} d" + str(PAR_CUT), PAR_CUT,
+     ("--backend", "cuda")))
+# the runs that share the card at once (each a process of its own and its
+# ranks; a run's peak is its own process's). A one-rank run at full depth
+# peaks at 35, 43 and 53 GB at 4, 2 and 1 microbatches, a rank of (a)
+# near 17 GB; the runs at PAR_CUT layers at 12-15 GB one rank, 3-10 GB a
+# rank on a mesh; (d)'s two ranks near 38 GB each, 76 GB of the card's
+# 79 GiB, so nothing else fits beside (d) and it runs alone
+PAR_WAVES = (("0 m4", M1C, "f"), ("0 m1", "b"), ("a", "e"),
+             ("0 m2", M2C, "c"), ("d",))
+# (the run whose checkpoint, the layouts it is restored onto by ranks of
+# their own); each restore is also held against the run's own ranks, and
+# is made while the next wave runs (a few GB beside (a) and (e))
+PAR_RESTORES = (("b", ("data:2,pipe:2", "model:2")), ("d", ("data:2",)))
 # step 1 is taken before any update: its loss and gradient norm are the
 # same in every layout up to the order of its sums (its loss at random
 # weights is about ln V whatever the layout, so the norm is the sharper
@@ -3644,10 +3718,21 @@ PAR_FIRST_BOUND = 1e-4
 PAR_GNORM_BOUND = 1e-3
 PAR_LATER_BOUND = 1e-3
 PAR_TIMEOUT = 600
+PAR_RANK_LINE = re.compile(
+    r"^rank (\d+): param elements ([0-9,]+); max_memory_allocated "
+    r"([0-9.]+) GB; flash launches forward (\d+), backward (\d+); staged "
+    r"through the host ([0-9.]+) B a step; collectives ([0-9.]+) s a step; "
+    r"by kind \((.*)\); state fingerprint (\w+); model-whole fingerprint "
+    r"(\w+)$", re.M)
 
 
 def par_mesh(spec):
     return LT.parse_mesh(spec) if spec else {}
+
+
+def par_cfg(depth):
+    cfg = get_config(TR_ARCH)
+    return depth_variant(cfg, depth) if depth else cfg
 
 
 def par_layout(cfg, mesh):
@@ -3664,16 +3749,21 @@ def par_layout(cfg, mesh):
             {"params": local, "opt": OPT.init_state(ocfg, local)})
 
 
+def rank_mesh(shape, r):
+    """The Mesh (no groups) of global rank r on {axis: size} `shape`."""
+    axes = tuple(a for a, _ in LM._ordered(shape))
+    c, rest = {}, r
+    for a in reversed(axes):
+        c[a], rest = rest % shape[a], rest // shape[a]
+    return LM.Mesh(axis_names=axes, shape=dict(shape), coords=c, rank=r)
+
+
 def rank_elements(cfg, shape):
     """Each rank's parameter elements under the spec tree on `shape`."""
-    axes = tuple(a for a, _ in LM._ordered(shape))
     out = []
     abstract = init_params(None, cfg, device="meta")
-    for r in range(int(np.prod([shape[a] for a in axes]))):
-        c, rest = {}, r
-        for a in reversed(axes):
-            c[a], rest = rest % shape[a], rest // shape[a]
-        mesh = LM.Mesh(axis_names=axes, shape=dict(shape), coords=c)
+    for r in range(int(np.prod(list(shape.values())))):
+        mesh = rank_mesh(shape, r)
         specs = SHD.param_specs(cfg, abstract, SHD.Strategy(
             pipeline=shape.get("pipe", 1) > 1), mesh)
         out.append(sum(int(np.prod(SHD.local_shape(t.shape, s, mesh)))
@@ -3682,67 +3772,277 @@ def rank_elements(cfg, shape):
     return out
 
 
-def run_par(tag, mesh, micro, extra=()):
-    """The training CLI in a subprocess (it spawns its own ranks on the
-    card, joined over gloo); its output logged line by line. Fails the run
-    on a non-zero exit (any rank's)."""
+def start_par(tag, tmp):
+    """The training CLI of run `tag` in a subprocess leading a process
+    group of its own (it spawns its ranks on the card, joined over gloo),
+    its output to files under `tmp`."""
+    _, mesh, micro, _, depth, extra = PAR_BY_TAG[tag]
     cmd = [sys.executable, "-m", "repro_torch.launch.train", *PAR_CLI,
-           "--mesh", mesh, "--microbatches", str(micro), *extra]
+           "--mesh", mesh]
+    if micro is not None:
+        cmd += ["--remat", "none", "--microbatches", str(micro)]
+    if depth:
+        cmd += ["--depth", str(depth)]
+    if CKPT in extra:
+        cmd += ["--ckpt-dir", os.path.join(tmp, f"ckpt_{tag}"),
+                "--ckpt-interval", "0"]
+    cmd += [x for x in extra if x != CKPT]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.time()
-    out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
-                         text=True, timeout=PAR_TIMEOUT)
-    wall = time.time() - t0
-    for line in out.stdout.splitlines():
+    name = tag.replace(" ", "_")
+    out = open(os.path.join(tmp, f"{name}.out"), "w+")
+    err = open(os.path.join(tmp, f"{name}.err"), "w+")
+    proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=out, stderr=err,
+                            text=True, start_new_session=True)
+    return {"proc": proc, "out": out, "err": err, "t0": time.time()}
+
+
+def wait_par(started):
+    """Waits for every started run, each given PAR_TIMEOUT from its start;
+    a run that exits non-zero or runs out of time stops the others and
+    fails the phase. Returns {tag: (stdout, wall)}."""
+    done = {}
+    try:
+        while len(done) < len(started):
+            for tag, st in started.items():
+                if tag in done:
+                    continue
+                rc = st["proc"].poll()
+                if rc is None and time.time() - st["t0"] > PAR_TIMEOUT:
+                    fail(f"phase 14({tag}): the trainer ran past "
+                         f"{PAR_TIMEOUT} s")
+                if rc is None:
+                    continue
+                st["out"].seek(0)
+                done[tag] = (st["out"].read(), time.time() - st["t0"])
+                if rc != 0:
+                    for line in done[tag][0].splitlines():
+                        log(f"[14 {tag}] | {line}")
+                    st["err"].seek(0)
+                    for line in error_lines(st["err"].read()):
+                        log(f"[14 {tag}] ! {line}")
+                    fail(f"phase 14({tag}): the trainer exited with {rc}")
+            time.sleep(0.2)
+    finally:
+        stop_ranks(started)
+    return done
+
+
+def parse_par(tag, text, wall):
+    """A finished run's output, logged line by line, and parsed."""
+    for line in text.splitlines():
         log(f"[14 {tag}] | {line}")
-    if out.returncode != 0:
-        for line in out.stderr.splitlines()[-60:]:
-            log(f"[14 {tag}] ! {line}")
-        fail(f"phase 14({tag}): the trainer exited with {out.returncode}")
-    text = out.stdout
     steps = re.findall(r"^step +\d+ loss=([0-9.]+) gnorm=([0-9.]+)", text,
                        re.M)
     losses = [float(a) for a, _ in steps]
     gnorms = [float(b) for _, b in steps]
     done = re.search(r"^done: (\d+) steps in ([0-9.]+)s", text, re.M)
     pred = re.search(r"= ([0-9.]+) GB \(class", text)
+    execution = re.search(r"^execution: .*remat=(\w+) micro=(\d+) ", text,
+                          re.M)
     ranks = [dict(rank=int(m[0]), elements=int(m[1].replace(",", "")),
                   peak=float(m[2]) * 1e9, fwd=int(m[3]), bwd=int(m[4]),
-                  staged=float(m[5]), comm_s=float(m[6]))
-             for m in re.findall(
-                 r"^rank (\d+): param elements ([0-9,]+); "
-                 r"max_memory_allocated ([0-9.]+) GB; flash launches "
-                 r"forward (\d+), backward (\d+); staged through the host "
-                 r"([0-9.]+) B a step; collectives ([0-9.]+) s a step",
-                 text, re.M)]
+                  staged=float(m[5]), comm_s=float(m[6]), kinds=m[7],
+                  state=m[8], whole=m[9])
+             for m in PAR_RANK_LINE.findall(text)]
     if len(losses) != PAR_STEPS or not all(np.isfinite(losses)) or \
-            done is None or pred is None:
-        fail(f"phase 14({tag}): losses {losses}, or no done / prediction "
-             "line")
+            done is None or pred is None or execution is None:
+        fail(f"phase 14({tag}): losses {losses}, or no done, prediction or "
+             "execution line")
     peak = re.search(r"max_memory_allocated\(\) ([0-9.]+) GB", text)
+    planning = re.search(r"^planning: (\d+) steps measured on the card in "
+                         r"([0-9.]+)s", text, re.M)
     return {"losses": losses, "gnorms": gnorms,
             "step_s": float(done.group(2)) / PAR_STEPS,
             "wall": wall, "predicted": float(pred.group(1)) * 1e9,
-            "ranks": ranks, "peak0": float(peak.group(1)) * 1e9}
+            "remat": execution.group(1), "micro": int(execution.group(2)),
+            "ranks": ranks, "peak0": float(peak.group(1)) * 1e9,
+            "plans": re.findall(r"^rank \d+ plan: (.*)$", text, re.M),
+            "planning": planning.groups() if planning else None,
+            "memory": re.search(r"^memory: .*$", text, re.M)}
 
 
-def _digest(t):
-    return hashlib.sha256(t.detach().reshape(-1).contiguous().cpu().view(
-        torch.uint8).numpy()).hexdigest()
+def judge_run(runs, tag):
+    """Phase 14's gates on one run: its losses and gradient norms against
+    its one-rank run, each rank's parameter elements and flash launches,
+    on a model axis the fingerprints of the leaves it holds whole equal on
+    a model group's ranks and every rank's plan one; and its report.
+    Returns the run's flash forward and backward launches over its
+    ranks."""
+    _, mesh, _, ref, depth, _ = PAR_BY_TAG[tag]
+    run = runs[tag]
+    cfg = par_cfg(depth)
+    shape = par_mesh(mesh)
+    micro = run["micro"]
+    if ref is None:
+        log(f"[14 {tag}] one rank, {cfg.n_layers} layers, {micro} "
+            f"microbatches: losses {run['losses']}, gradient norms "
+            f"{run['gnorms']}, {run['step_s']:.2f} s a step, peak "
+            f"{run['peak0'] / 1e9:.3f} GB against "
+            f"{run['predicted'] / 1e9:.3f} GB predicted "
+            f"({run['peak0'] / run['predicted']:.4f}), {run['wall']:.2f} s "
+            "with start-up")
+        return 0, 0
+    ref = ref.format(m=micro)
+    if ref not in runs:
+        fail(f"phase 14({tag}): no one-rank run {ref!r} to match its plan")
+    want, want_g = runs[ref]["losses"], runs[ref]["gnorms"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"], want)]
+    rel_g = abs(run["gnorms"][0] - want_g[0]) / abs(want_g[0])
+    log(f"[14 {tag}] --mesh {mesh}, {cfg.n_layers} layers, remat "
+        f"{run['remat']}, {micro} microbatches: losses {run['losses']} "
+        f"against ({ref})'s {want} (relative {rel}); step 1's gradient norm "
+        f"{run['gnorms'][0]!r} against {want_g[0]!r} (relative {rel_g!r}); "
+        f"later norms {run['gnorms'][1:]} against {want_g[1:]}; "
+        f"{run['step_s']:.2f} s a step, {run['wall']:.2f} s with start-up")
+    if rel[0] > PAR_FIRST_BOUND or max(rel[1:]) > PAR_LATER_BOUND or \
+            rel_g > PAR_GNORM_BOUND:
+        fail(f"phase 14({tag}): losses {run['losses']} against ({ref})'s "
+             f"{want}: relative {rel} (bounds {PAR_FIRST_BOUND}, then "
+             f"{PAR_LATER_BOUND}); step 1's gradient norm relative {rel_g} "
+             f"(bound {PAR_GNORM_BOUND})")
+    pipe = shape.get("pipe", 1)
+    model = shape.get("model", 1)
+    layers = cfg.n_layers // pipe
+    twice = (2 if pipe > 1 else 1) * (2 if run["remat"] != "none" else 1)
+    want_fwd = layers * micro * twice * PAR_STEPS
+    want_bwd = layers * micro * PAR_STEPS
+    elements = rank_elements(cfg, shape)
+    sharded = PR.sharded_param_count(cfg, shape)
+    if len(run["ranks"]) != len(elements):
+        fail(f"phase 14({tag}): {len(run['ranks'])} rank lines")
+    fwd = bwd = 0
+    for r in run["ranks"]:
+        n = elements[r["rank"]]
+        log(f"[14 {tag}] rank {r['rank']}: {r['elements']:,} parameter "
+            f"elements (spec tree {n:,}; predictor.sharded_param_count "
+            f"{sharded:,.0f}, difference {r['elements'] - sharded:,.0f}"
+            f"); max_memory_allocated {r['peak'] / 1e9:.3f} GB against "
+            f"{run['predicted'] / 1e9:.3f} GB predicted, measured / "
+            f"predicted {r['peak'] / run['predicted']:.4f}; flash "
+            f"launches {r['fwd']} / {r['bwd']} (predicted {want_fwd} / "
+            f"{want_bwd}); staged through the host {r['staged']:.0f} B "
+            f"a step ({r['kinds']}); collectives {r['comm_s']:.2f} s of "
+            f"the step's {run['step_s']:.2f} s ({nvidia_smi_line()})")
+        if r["elements"] != n:
+            fail(f"phase 14({tag}): rank {r['rank']} holds "
+                 f"{r['elements']} parameter elements, spec tree {n}")
+        if pipe > 1 and "data" not in shape and n != sharded:
+            fail(f"phase 14({tag}): {n} elements against the "
+                 f"predictor's {sharded}")
+        if (r["fwd"], r["bwd"]) != (want_fwd, want_bwd):
+            fail(f"phase 14({tag}): rank {r['rank']} launched "
+                 f"{r['fwd']} / {r['bwd']} flash kernels, predicted "
+                 f"{want_fwd} / {want_bwd}")
+        fwd, bwd = fwd + r["fwd"], bwd + r["bwd"]
+    if model > 1:
+        groups = {}
+        for r in run["ranks"]:
+            groups.setdefault(r["rank"] // model, set()).add(r["whole"])
+        if any(len(g) != 1 for g in groups.values()):
+            fail(f"phase 14({tag}): the leaves the model axis holds whole "
+                 f"(the norms) differ between a model group's ranks after "
+                 f"the last step: {groups}")
+        log(f"[14 {tag}] the leaves each rank holds whole (the norms) are "
+            f"bit-identical on a model group's ranks after step "
+            f"{PAR_STEPS}: fingerprints {sorted(groups.items())}")
+    if len(set(run["plans"])) != 1 or len(run["plans"]) != len(elements):
+        fail(f"phase 14({tag}): the ranks planned apart: {run['plans']}")
+    if run["planning"] is not None:
+        log(f"[14 {tag}] the online phase on the card: "
+            f"{run['planning'][0]} steps measured over the model group in "
+            f"{run['planning'][1]}s; every rank's class and plan "
+            f"{run['plans'][0]}; {run['memory'].group(0)} (rank 0)")
+    return fwd, bwd
 
 
-def restore_digests(device, ckpt_dir):
-    """One rank of data:2,pipe:2: (b)'s checkpoint restored onto this
-    rank's layout, on the card; a digest of each leaf."""
-    cfg = get_config(TR_ARCH)
-    mesh = LM.build_mesh(par_mesh("data:2,pipe:2"))
-    specs, target = par_layout(cfg, mesh)
+def _slices_fingerprint(full, specs, mesh):
+    return CK.fingerprint([SHD.local_slice(t, s, mesh) for t, s in
+                           zip(tree_leaves(full), tree_leaves(specs))])
+
+
+def restore_fingerprints(device, ckpt_dir, depth, mesh_spec):
+    """One rank of `mesh_spec`: the checkpoint restored onto this rank's
+    layout, on the card; its fingerprint."""
+    mesh = LM.build_mesh(par_mesh(mesh_spec))
+    specs, target = par_layout(par_cfg(depth), mesh)
     tree, manifest = CK.restore(ckpt_dir, target, device=device, mesh=mesh,
                                 spec_tree=specs)
-    on_card = all(t.device == device for t in tree_leaves(tree))
-    return {"coords": dict(mesh.coords), "step": manifest["step"],
-            "on_card": on_card,
-            "digests": [_digest(t) for t in tree_leaves(tree)]}
+    return {"rank": mesh.rank, "step": manifest["step"],
+            "on_card": all(t.device == device for t in tree_leaves(tree)),
+            "fingerprint": CK.fingerprint(tree)}
+
+
+def _spawn_restore(ckpt_dir, depth, layout):
+    """(the ranks' restore_fingerprints onto `layout`, seconds)."""
+    t0 = time.time()
+    res = LM.spawn_ranks(restore_fingerprints, int(np.prod(list(
+        par_mesh(layout).values()))), "gloo", "cuda",
+        args=(ckpt_dir, depth, layout), timeout=PAR_TIMEOUT)
+    return res, time.time() - t0
+
+
+def check_restore(runs, tag, layouts, ckpt_dir):
+    """Run `tag`'s checkpoint restored onto one device (the card, whole),
+    each of its ranks' slices of it against the state that rank held at
+    its last step, bit for bit (the fingerprints its rank line printed);
+    and, at the same time, onto each layout of `layouts` by ranks of their
+    own, each rank's leaves bit for bit the slices of the one-device
+    restore."""
+    _, mesh, _, _, depth, _ = PAR_BY_TAG[tag]
+    cfg = par_cfg(depth)
+    t0 = time.time()
+    pool = ThreadPoolExecutor(len(layouts))
+    spawned = {layout: pool.submit(_spawn_restore, ckpt_dir, depth, layout)
+               for layout in layouts}
+    try:
+        return _check_restores(runs, tag, cfg, mesh, ckpt_dir, spawned, t0)
+    finally:
+        pool.shutdown(wait=True)
+
+
+def _check_restores(runs, tag, cfg, mesh, ckpt_dir, spawned, t0):
+    abstract = init_params(None, cfg, device="meta")
+    ocfg = OPT.OptimizerConfig(kind="adamw_f32")
+    full, manifest = CK.restore(ckpt_dir, {
+        "params": abstract, "opt": OPT.init_state(ocfg, abstract)},
+        device="cuda")
+    n_leaves = len(tree_leaves(full))
+    size = sum(t.numel() * t.element_size() for t in tree_leaves(full))
+    if manifest["step"] != PAR_STEPS:
+        fail(f"phase 14({tag}): its checkpoint holds step "
+             f"{manifest['step']}")
+    shape = par_mesh(mesh)
+    for r in runs[tag]["ranks"]:
+        rm = rank_mesh(shape, r["rank"])
+        got = _slices_fingerprint(full, par_layout(cfg, rm)[0], rm)
+        if got != r["state"]:
+            fail(f"phase 14({tag}): rank {r['rank']}'s slices of its "
+                 f"checkpoint restored onto one device (fingerprint {got}) "
+                 f"are not the state it held ({r['state']})")
+    log(f"[14 {tag}] its checkpoint (step {manifest['step']}, {n_leaves} "
+        f"leaves, {size} B) restored onto one device (the card): each "
+        f"rank's slices of it are the params and optimizer state the rank "
+        f"held, bit for bit ({time.time() - t0:.2f}s)")
+    out = {"leaves": n_leaves, "bytes": size, "s": {}}
+    for layout, fut in spawned.items():
+        lshape = par_mesh(layout)
+        res, out["s"][layout] = fut.result()
+        for r in res:
+            rm = rank_mesh(lshape, r["rank"])
+            want = _slices_fingerprint(full, par_layout(cfg, rm)[0], rm)
+            if (r["fingerprint"] != want or not r["on_card"]
+                    or r["step"] != PAR_STEPS):
+                fail(f"phase 14({tag}): its checkpoint restored onto "
+                     f"{layout}, rank {r['rank']}: fingerprint "
+                     f"{r['fingerprint']} against the one-device restore's "
+                     f"slices {want}, on the card {r['on_card']}, step "
+                     f"{r['step']}")
+        log(f"[14 {tag}] its checkpoint restored onto {layout}: every "
+            f"rank's leaves equal the one-device restore's slices bit for "
+            f"bit ({out['s'][layout]:.2f}s, beside the one-device restore)")
+    del full
+    torch.cuda.empty_cache()
+    return out
 
 
 def psum_check(device, shape):
@@ -3769,44 +4069,8 @@ def psum_check(device, shape):
             "on_card": got.is_cuda}
 
 
-def check_restore(cfg, ckpt_dir):
-    """(b)'s checkpoint onto data:2,pipe:2 (four ranks on the card): each
-    rank's leaves bit for bit the matching slices of a one-device restore
-    (made here, on the host), compared by digest."""
-    t0 = time.time()
-    out = LM.spawn_ranks(restore_digests, 4, "gloo", "cuda",
-                         args=(ckpt_dir,), timeout=PAR_TIMEOUT)
-    abstract = init_params(None, cfg, device="meta")
-    ocfg = OPT.OptimizerConfig(kind="adamw_f32")
-    full, manifest = CK.restore(ckpt_dir, {
-        "params": abstract, "opt": OPT.init_state(ocfg, abstract)},
-        device="cpu")
-    n_leaves = len(tree_leaves(full))
-    for res in out:
-        mesh = LM.Mesh(axis_names=("pipe", "data"),
-                       shape=par_mesh("data:2,pipe:2"), coords=res["coords"])
-        specs, _ = par_layout(cfg, mesh)
-        with ThreadPoolExecutor(8) as pool:    # hashlib releases the GIL
-            want = list(pool.map(
-                lambda ts: _digest(SHD.local_slice(*ts, mesh)),
-                zip(tree_leaves(full), tree_leaves(specs))))
-        bad = sum(a != b for a, b in zip(want, res["digests"]))
-        if (bad or len(res["digests"]) != n_leaves or not res["on_card"]
-                or res["step"] != PAR_STEPS):
-            fail(f"phase 14(c): restore on rank {res['coords']}: {bad} of "
-                 f"{n_leaves} leaves differ, step {res['step']}, on the "
-                 f"card {res['on_card']}")
-    size = sum(t.numel() * t.element_size() for t in tree_leaves(full))
-    del full
-    log(f"[14 c] (b)'s checkpoint (step {manifest['step']}, {n_leaves} "
-        f"leaves, {size} B) restored onto data:2,pipe:2: every rank's "
-        f"leaves equal the one-device restore's slices bit for bit "
-        f"({time.time() - t0:.2f}s)")
-    return {"leaves": n_leaves, "bytes": size, "s": time.time() - t0}
-
-
 def psum_phase(cfg):
-    """(d): compressed_psum at the largest leaf's size, two ranks."""
+    """compressed_psum at the largest leaf's size, two ranks."""
     abstract = init_params(None, cfg, device="meta")
     big = max(tree_leaves(abstract), key=lambda t: t.numel())
     shape = tuple(big.shape)
@@ -3814,110 +4078,78 @@ def psum_phase(cfg):
     out = LM.spawn_ranks(psum_check, 2, "gloo", "cuda", args=(shape,),
                          timeout=PAR_TIMEOUT)
     for r, res in enumerate(out):
-        log(f"[14 d] rank {r}: compressed_psum over [{shape}] f32 on the "
+        log(f"[14 psum] rank {r}: compressed_psum over [{shape}] f32 on the "
             f"card {res['on_card']}: max abs err {res['err']!r} against "
             f"the exact mean, scale {res['scale']!r} (bound 1.5 x scale = "
             f"{1.5 * res['scale']!r}); {res['ms']:.1f} ms, staged through "
             f"the host {res['staged']} B")
         if not res["on_card"] or res["err"] > 1.5 * res["scale"]:
-            fail(f"phase 14(d): compressed_psum err {res['err']} > 1.5 x "
+            fail(f"phase 14(psum): compressed_psum err {res['err']} > 1.5 x "
                  f"{res['scale']}")
     return {"shape": shape, "err": max(r["err"] for r in out),
             "scale": out[0]["scale"]}
 
 
-def judge_run(cfg, runs, tag, mesh, micro, ref):
-    """Phase 14's gates on one run, as it ends: its losses and gradient
-    norms against the one-rank run `ref`, each rank's parameter elements
-    and flash launches; and its report. Returns the run's flash forward
-    and backward launches over its ranks."""
-    run = runs[tag]
-    shape = par_mesh(mesh)
-    if ref is None:
-        log(f"[14 {tag}] one rank, {micro} microbatches: losses "
-            f"{run['losses']}, gradient norms {run['gnorms']}, "
-            f"{run['step_s']:.2f} s a step, peak "
-            f"{run['peak0'] / 1e9:.3f} GB against "
-            f"{run['predicted'] / 1e9:.3f} GB predicted "
-            f"({run['peak0'] / run['predicted']:.4f})")
-        return 0, 0
-    want, want_g = runs[ref]["losses"], runs[ref]["gnorms"]
-    rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"], want)]
-    rel_g = abs(run["gnorms"][0] - want_g[0]) / abs(want_g[0])
-    log(f"[14 {tag}] --mesh {mesh} --microbatches {micro}: losses "
-        f"{run['losses']} against ({ref})'s {want} (relative {rel}); "
-        f"step 1's gradient norm {run['gnorms'][0]!r} against "
-        f"{want_g[0]!r} (relative {rel_g!r}); later norms "
-        f"{run['gnorms'][1:]} against {want_g[1:]}; "
-        f"{run['step_s']:.2f} s a step, {run['wall']:.2f} s with start-up")
-    if rel[0] > PAR_FIRST_BOUND or max(rel[1:]) > PAR_LATER_BOUND or \
-            rel_g > PAR_GNORM_BOUND:
-        fail(f"phase 14({tag}): losses {run['losses']} against ({ref})'s "
-             f"{want}: relative {rel} (bounds {PAR_FIRST_BOUND}, then "
-             f"{PAR_LATER_BOUND}); step 1's gradient norm relative {rel_g} "
-             f"(bound {PAR_GNORM_BOUND})")
-    pipe = shape.get("pipe", 1)
-    layers = cfg.n_layers // pipe
-    want_fwd = layers * micro * (2 if pipe > 1 else 1) * PAR_STEPS
-    want_bwd = layers * micro * PAR_STEPS
-    elements = rank_elements(cfg, shape)
-    sharded = PR.sharded_param_count(cfg, shape)
-    if len(run["ranks"]) != len(elements):
-        fail(f"phase 14({tag}): {len(run['ranks'])} rank lines")
-    fwd = bwd = 0
-    for r in run["ranks"]:
-        n = elements[r["rank"]]
-        log(f"[14 {tag}] rank {r['rank']}: {r['elements']:,} parameter "
-            f"elements (spec tree {n:,}; predictor.sharded_param_count "
-            f"{sharded:,.0f}, difference {r['elements'] - sharded:,.0f}"
-            f"); max_memory_allocated {r['peak'] / 1e9:.3f} GB against "
-            f"{run['predicted'] / 1e9:.3f} GB predicted, measured / "
-            f"predicted {r['peak'] / run['predicted']:.4f}; flash "
-            f"launches {r['fwd']} / {r['bwd']} (predicted {want_fwd} / "
-            f"{want_bwd}); staged through the host {r['staged']:.0f} B "
-            f"a step; collectives {r['comm_s']:.2f} s of the step's "
-            f"{run['step_s']:.2f} s")
-        if r["elements"] != n:
-            fail(f"phase 14({tag}): rank {r['rank']} holds "
-                 f"{r['elements']} parameter elements, spec tree {n}")
-        if pipe > 1 and "data" not in shape and n != sharded:
-            fail(f"phase 14({tag}): {n} elements against the "
-                 f"predictor's {sharded}")
-        if (r["fwd"], r["bwd"]) != (want_fwd, want_bwd):
-            fail(f"phase 14({tag}): rank {r['rank']} launched "
-                 f"{r['fwd']} / {r['bwd']} flash kernels, predicted "
-                 f"{want_fwd} / {want_bwd}")
-        fwd, bwd = fwd + r["fwd"], bwd + r["bwd"]
-    return fwd, bwd
+PAR_BY_TAG = {r[0]: r for r in PAR_RUNS}
 
 
-def phase_parallel():
+def phase_parallel(only=None):
     """Phase 14: the trainer on meshes of ranks sharing the card over
-    gloo, against one rank, each run judged as it ends; (b)'s checkpoint
-    restored onto (c)'s layout; compressed_psum at the largest leaf's
-    size."""
-    cfg = get_config(TR_ARCH)
+    gloo, the runs of a wave (PAR_WAVES) at once, each run judged against
+    its one-rank run; the checkpoints of (b) and (d) restored onto other
+    layouts; compressed_psum at the largest leaf's size. `only` limits the
+    runs (and the checks that need them) to those tags."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    runs = {}
-    fwd = bwd = 0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_par_")
+    runs, walls, launches, restores = {}, {}, {}, {}
+
+    def restore_all(pending):
+        for tag, layouts in pending:
+            restores[tag] = check_restore(runs, tag, layouts,
+                                          os.path.join(tmp, f"ckpt_{tag}"))
+            shutil.rmtree(os.path.join(tmp, f"ckpt_{tag}"),
+                          ignore_errors=True)
+
+    pending = []             # restores to make while the next wave runs
     try:
-        for tag, mesh, micro, ref in PAR_RUNS:
-            if tag == "c":
-                restore = check_restore(cfg, ckpt_dir)
-                shutil.rmtree(ckpt_dir, ignore_errors=True)
-            extra = (["--ckpt-dir", ckpt_dir, "--ckpt-interval", "0"]
-                     if tag == "b" else [])
-            runs[tag] = run_par(tag, mesh, micro, extra)
-            f, b = judge_run(cfg, runs, tag, mesh, micro, ref)
-            fwd, bwd = fwd + f, bwd + b
-        psum = psum_phase(cfg)
+        for wave in PAR_WAVES:
+            wave = [t for t in wave if only is None or t in only]
+            if not wave:
+                continue
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            t0 = time.time()
+            started = {}
+            try:
+                for tag in wave:
+                    started[tag] = start_par(tag, tmp)
+                restore_all(pending)
+            except BaseException:
+                stop_ranks(started)
+                raise
+            pending = [r for r in PAR_RESTORES if r[0] in wave]
+            done = wait_par(started)
+            walls["wave " + ", ".join(wave)] = time.time() - t0
+            for tag in wave:
+                runs[tag] = parse_par(tag, *done[tag])
+            for tag in wave:
+                launches[tag] = judge_run(runs, tag)
+        restore_all(pending)
+        psum = psum_phase(par_cfg(0)) if only is None else None
     finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("[14] walls " + ", ".join(f"({k}) {v:.2f}s"
+                                  for k, v in walls.items()))
+    log("[14] flash launches forward / backward over each run's ranks: "
+        + ", ".join(f"({k}) {f} / {b}" for k, (f, b) in launches.items()
+                    if f or b))
     log("[14] these runs are ranks sharing one card over gloo (each "
-        "collective staged through the host), not a multi-GPU measurement")
-    return {"fwd": fwd, "bwd": bwd, "restore": restore, "psum": psum}
+        "collective staged through the host), the runs of a wave beside "
+        "each other, not a multi-GPU measurement")
+    return {"fwd": sum(f for f, _ in launches.values()),
+            "bwd": sum(b for _, b in launches.values()),
+            "by_run": launches, "restore": restores, "psum": psum}
 
 
 # ---------------------------------------------------------------------------
@@ -4147,6 +4379,12 @@ TP_TRACE = ["--requests", "8", "--prompt-lens", "64,256,520,1024",
 TP_PAGED = ["--arch", "mistral-nemo-12b", "--kv", "paged", "--compact",
             "--chunk-prefill", "256", "--kv-block", "16", "--audit",
             "strict", *TP_TRACE]
+# (a) and (c) run 10 of mistral-nemo-12b's 40 layers, cut for the
+# script's time limit (PERF.md lists the cuts with the seconds they saved).
+# (b) keeps its 40: at 10 layers the ranks' retention dropped other blocks
+# than one rank's under the same tokens (attention masses near a tie,
+# summed in another order), which its schedule check refuses
+TP_CUT = 10
 # (d): 8 of mistral-nemo-12b's 40 layers on model:4, 4 requests
 TP_DEEP4 = ["--arch", "mistral-nemo-12b", "--depth", "8", "--kv", "paged",
             "--compact", "--chunk-prefill", "256", "--kv-block", "16",
@@ -4159,11 +4397,12 @@ TP_RING = ["--arch", "gemma3-12b", "--depth", "2", "--kv", "ring",
 # (c): planned by CudaMeasurer over the model axis, then a short trace
 TP_CUDA = ["--arch", "mistral-nemo-12b", "--kv", "paged", "--compact",
            "--chunk-prefill", "256", "--kv-block", "16", "--backend", "cuda",
-           "--requests", "2", "--prompt-lens", "64,256", "--gen-lens", "16",
-           "--seed", str(SEED + 19), "--max-slots", "8"]
+           "--depth", str(TP_CUT), "--requests", "2", "--prompt-lens",
+           "64,256", "--gen-lens", "16", "--seed", str(SEED + 19),
+           "--max-slots", "8"]
 # (tag, argv, model ranks, whether one rank replays the ranks' tokens; (c)'s
 # ranks are held to each other only)
-TP_STEPS = (("a", TP_PAGED, 2, True),
+TP_STEPS = (("a", TP_PAGED + ["--depth", str(TP_CUT)], 2, True),
             ("b", TP_PAGED + ["--kv-quant", "int8", "--kv-retain", "2"], 2,
              True),
             ("c", TP_CUDA, 2, False),
@@ -4171,9 +4410,12 @@ TP_STEPS = (("a", TP_PAGED, 2, True),
             ("e", TP_RING, 2, True))
 # the steps whose ranks share the card at once. A rank of mistral-nemo-12b
 # at 40 layers peaks near 30 GB while it draws its shards (a whole stacked
-# leaf, then its cut), so (a), (b) and (c) run alone; (d) (8 layers, 4
-# ranks) and (e) (12 layers, 2 ranks) together peak near 35 GB
-TP_WAVES = (("a",), ("b",), ("c",), ("d", "e"))
+# leaf, then its cut), so (b) runs alone; (d) (8 layers, 4 ranks) and (e)
+# (12 layers, 2 ranks) together peak near 35 GB. (a) and (c) at 10 layers
+# (under 5 GB a rank) share a wave of their own, four processes: beside
+# (d) and (e) (eight), a rank of (d) met "Connection closed by peer" in a
+# collective
+TP_WAVES = (("a", "c"), ("b",), ("d", "e"))
 # per-device planning budgets (GiB): the ranks' plans fit the card together
 TP_BUDGET_GB = {1: 60, 2: 30, 4: 16}
 TP_TIMEOUT = 400
@@ -4296,7 +4538,7 @@ def wait_ranks(started):
                 stop_ranks(started)
                 read_ranks(tag, st, walls[tag])
                 st["err"].seek(0)
-                for line in st["err"].read().splitlines()[-60:]:
+                for line in error_lines(st["err"].read()):
                     log(f"[16{tag}] ! {line}")
                 fail(f"phase 16({tag}): the serve CLI on {st['world']} ranks "
                      f"exited with {rc}")
@@ -4548,6 +4790,10 @@ def main():
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (1 always runs)")
+    ap.add_argument("--par-runs", default="",
+                    help="comma-separated tags of phase 14's runs to make "
+                         "(default every run, the restores and "
+                         "compressed_psum; a run needs its one-rank run)")
     args = ap.parse_args()
     phases = {int(x) for x in args.phases.split(",")}
     t_start = time.time()
@@ -4610,7 +4856,8 @@ def main():
     if 14 in phases:
         torch.cuda.empty_cache()
         t0 = time.time()
-        p14 = phase_parallel()
+        p14 = phase_parallel({t.strip() for t in args.par_runs.split(",")}
+                             if args.par_runs else None)
         log(f"[14] phase 14 {time.time() - t0:.2f}s")
     if 15 in phases:
         torch.cuda.empty_cache()

@@ -10,9 +10,14 @@ how large an error the end-to-end checks see on their own.
 
 Phases 14 and 15 plant each fault in a copy of this checkout's sources
 (in a temporary directory), where `chip_smoke.py --phases 1,14` (or
-`1,15`) then runs. Phase 14 (the trainer runs in processes of its own):
-the data axes' gradient mean left out of `sync_grads`, and gathered
-shards concatenated in reverse rank order. Phase 15: the step counter
+`1,15`) then runs, phase 14 limited to the runs that should catch the
+fault (`--par-runs`). Phase 14 (the trainer runs in processes of its
+own): the data axes' gradient mean left out of `sync_grads`, and
+gathered shards concatenated in reverse rank order, each for 14(b)
+(data:2); the tensor-parallel entry op's backward without its all-reduce
+(each rank's share of the input's gradient taken for the whole), and
+`tp_sum`'s backward all-reducing the gradient again (M times it), each
+for 14(d) (model:2). Phase 15: the step counter
 counting a train step's forward alone (the backward's and the
 optimizer's FLOPs dropped), and the card dry-run measuring with the
 simulator instead of the card. Phase 16 (the serve CLI on a model axis):
@@ -23,7 +28,7 @@ summed over the model axis (the ranks rank blocks for retention each by
 its own heads), caught at 16(b) by the ranks' block-table schedules.
 
     python3 smoke_mutation.py              # 13(b) at x0.9 and x0.97, 13(a) at x0.9
-    python3 smoke_mutation.py --phase 14   # the two parallel-layer faults
+    python3 smoke_mutation.py --phase 14   # the four parallel-layer faults
     python3 smoke_mutation.py --phase 15   # the two dry-run faults
     python3 smoke_mutation.py --phase 16   # the two model-axis faults
 
@@ -41,12 +46,22 @@ import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CASES = (("13b", 0.9), ("13b", 0.97), ("13a", 0.9))
-# (name, file, text, the text planted in its place)
+# (name, file, text, the text planted in its place[, phase 14's runs])
 FAULTS_14 = (
     ("sync_grads without the data mean", "src/repro_torch/runtime/schedule.py",
-     "            g.div_(dp)\n", "            pass\n"),
+     "            g.div_(dp)\n", "            pass\n", "0 m1 d2,b"),
     ("gathered shards in reverse order", "src/repro_torch/parallel/comm.py",
-     "full.narrow(dim, r * k, k)", "full.narrow(dim, (n - 1 - r) * k, k)"),
+     "full.narrow(dim, r * k, k)", "full.narrow(dim, (n - 1 - r) * k, k)",
+     "0 m1 d2,b"),
+    ("the entry op's backward without its all-reduce",
+     "src/repro_torch/parallel/comm.py",
+     "        return all_reduce(grad, ctx.group, kind=\"tp_enter_grad\"), "
+     "None\n",
+     "        return grad, None\n", "0 m1,d"),
+    ("tp_sum's backward all-reducing again (M times the gradient)",
+     "src/repro_torch/parallel/comm.py",
+     "        return grad, None, None\n",
+     "        return all_reduce(grad, model_group()), None, None\n", "0 m1,d"),
 )
 FAULTS_15 = (
     ("the counter drops the backward's FLOPs",
@@ -79,7 +94,7 @@ def planted(phase):
     """Each fault of `phase` in a copy of the sources, where the phase
     runs after phase 1: whether it failed (caught)."""
     tag = f"[{phase}"
-    for name, rel, old, new in FAULTS[phase]:
+    for name, rel, old, new, *runs in FAULTS[phase]:
         tmp = tempfile.mkdtemp(prefix="mutation_")
         try:
             shutil.copytree(os.path.join(HERE, "src"), os.path.join(tmp, "src"),
@@ -92,9 +107,11 @@ def planted(phase):
                 raise SystemExit(f"{name}: {old!r} is not in {rel} once")
             with open(path, "w") as f:
                 f.write(text.replace(old, new))
-            out = subprocess.run([sys.executable, "chip_smoke.py", "--phases",
-                                  f"1,{phase}"], cwd=tmp,
-                                 capture_output=True, text=True)
+            cmd = [sys.executable, "chip_smoke.py", "--phases", f"1,{phase}"]
+            if runs:
+                cmd += ["--par-runs", runs[0]]
+            out = subprocess.run(cmd, cwd=tmp, capture_output=True,
+                                 text=True)
             for line in out.stdout.splitlines():
                 if line.startswith(tag) and "] |" not in line and \
                         "] rank " not in line:

@@ -15,16 +15,25 @@ taken through torch, no ml_dtypes).
 - restore(): tensors in the target tree's layout and dtypes, on `device`.
   With a mesh and a spec tree each rank takes its own slice of every
   leaf, whatever mesh saved it (elastic re-mesh: what `data:2` saved
-  restores onto `pipe:2`, or onto one device), bit for bit.
+  restores onto `pipe:2`, what `model:2` saved onto one device or
+  `data:2`), bit for bit.
+- A tensor-parallel layout is saved in the reference's layout: a GLU
+  `wi` (and the optimizer state that mirrors its last dim), whose rank
+  blocks are [gate_r | val_r] under an `axes.GluSpec`, is written as the
+  whole [gate | val] (`sharding.gather_leaf`) and cut so again on restore
+  (`sharding.local_slice`).
 - Fault tolerance: latest_step() skips uncommitted (tmp) dirs; a partial
   save never shadows the previous good step.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import shutil
+import struct
 import threading
+import zipfile
 from typing import Dict, Optional
 
 import numpy as np
@@ -58,24 +67,42 @@ def _to_storable(t: torch.Tensor):
 
 
 def _from_storable(arr: np.ndarray, name: str) -> torch.Tensor:
+    """A tensor of its own (a copy: `arr` may map the file)."""
     if name == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(np.array(arr).view(np.int16)
                                 ).view(torch.bfloat16)
     return torch.from_numpy(np.array(arr))
 
 
-def _refuse_model_axis(mesh):
-    """A tensor-parallel layout (a GLU wi cut half by half) is not saved
-    or restored: its leaves would need the halves' gather."""
-    if mesh is not None and mesh.axis_size("model") > 1:
-        raise NotImplementedError("a mesh checkpoint of a model axis above "
-                                  "1 is not ported: ROADMAP queue A item 5")
+def _npz_members(path: str) -> Dict[str, np.ndarray]:
+    """{key: array} of an .npz. A member stored without compression (as
+    np.savez writes them) is a read-only np.memmap of its bytes in the
+    file, so that a rank restoring its slice of a leaf reads that slice
+    alone; any other member is read whole by np.load."""
+    lazy = np.load(path)
+    out = {k: None for k in lazy.files}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for info in zf.infolist():
+            key = info.filename[:-len(".npy")]
+            if info.compress_type != zipfile.ZIP_STORED or key not in out:
+                continue
+            f.seek(info.header_offset)
+            name_len, extra_len = struct.unpack("<HH", f.read(30)[26:30])
+            f.seek(info.header_offset + 30 + name_len + extra_len)
+            version = np.lib.format.read_magic(f)
+            read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                    else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = read(f)
+            if shape and int(np.prod(shape)) and not dtype.hasobject:
+                out[key] = np.memmap(f, dtype=dtype, mode="r",
+                                     offset=f.tell(), shape=shape,
+                                     order="F" if fortran else "C")
+    return {k: lazy[k] if v is None else v for k, v in out.items()}
 
 
 def save(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None,
          async_: bool = False, mesh=None,
          spec_tree=None) -> Optional[threading.Thread]:
-    _refuse_model_axis(mesh)
     flat: Dict[str, np.ndarray] = {}
     leaves = {}
     specs = (tree_leaves(spec_tree) if spec_tree is not None
@@ -116,6 +143,38 @@ def save(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None,
     return None
 
 
+# elements of a leaf checksummed at a time (bounds the int64 copy)
+_FP_CHUNK = 1 << 26
+_WORDS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _checksum(t: torch.Tensor) -> int:
+    """sum_i (2i + 1) * word_i mod 2**64 over the leaf's elements read as
+    signed integers of their width, on the leaf's device: one flipped bit
+    changes it (an odd weight times a power of two below 2**64), and
+    integer sums agree in any order, on any device."""
+    flat = t.detach().contiguous().reshape(-1).view(_WORDS[t.element_size()])
+    total = 0
+    for i in range(0, flat.numel(), _FP_CHUNK):
+        w = flat[i:i + _FP_CHUNK].to(torch.int64)
+        pos = torch.arange(i, i + w.numel(), dtype=torch.int64,
+                           device=w.device) * 2 + 1
+        total += int((w * pos).sum())
+    return total % (1 << 64)
+
+
+def fingerprint(tree) -> str:
+    """A digest of every leaf's shape, dtype and bits (`_checksum`),
+    computed where the leaves lie: two trees whose leaves are equal bit
+    for bit have the same fingerprint, and a leaf that differs in one bit
+    changes it."""
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        h.update(f"{tuple(t.shape)} {t.dtype};".encode())
+        h.update(_checksum(t).to_bytes(8, "little"))
+    return h.hexdigest()[:16]
+
+
 def latest_step(ckpt_dir: str) -> Optional[int]:
     if not os.path.isdir(ckpt_dir):
         return None
@@ -134,7 +193,6 @@ def restore(ckpt_dir: str, target_tree, step: Optional[int] = None,
     without a CUDA device). With `mesh` and `spec_tree` the target's
     leaves are this rank's shards, and each gets its slice of the stored
     leaf. Returns (tree, manifest dict)."""
-    _refuse_model_axis(mesh)
     dev = require_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -143,7 +201,7 @@ def restore(ckpt_dir: str, target_tree, step: Optional[int] = None,
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
-    arrays = np.load(os.path.join(d, "arrays.npz"))
+    arrays = _npz_members(os.path.join(d, "arrays.npz"))
     out = {}
     specs = (tree_leaves(spec_tree) if spec_tree is not None
              else [None] * len(tree_paths(target_tree)))

@@ -39,18 +39,16 @@ def params_from_jax(numpy_tree, cfg, device="cuda", mesh=None,
     With a `mesh` (`launch.mesh.Mesh`) the result is this rank's shards:
     each leaf cut on the host by `parallel.sharding.local_slice` under
     `spec_tree` (default: `param_specs` of the config's
-    `default_strategy` on the mesh), a GLU `wi` half by half, so that
-    every package sees the same weights."""
+    `default_strategy` on the mesh), a GLU `wi` (an `axes.GluSpec` leaf)
+    half by half, so that every package sees the same weights."""
     device = require_device(device)
     gen = torch.Generator().manual_seed(0)
     template = init_params(gen, cfg, device="meta")
-    glu = specs = None
     if mesh is not None:
         from repro_torch.parallel import sharding as S
         specs = spec_tree if spec_tree is not None else S.param_specs(
             cfg, template, S.default_strategy(cfg, mesh), mesh)
-        glu = S.glu_tree(cfg, template)
-        leaves = iter(zip(tree_leaves(specs), tree_leaves(glu)))
+        leaves = iter(tree_leaves(specs))
 
     def conv(a, t):
         a = np.asarray(a)
@@ -58,8 +56,7 @@ def params_from_jax(numpy_tree, cfg, device="cuda", mesh=None,
             raise ValueError(f"leaf of shape {a.shape}, template "
                              f"{tuple(t.shape)}")
         if mesh is not None:
-            spec, g = next(leaves)
-            a = S.local_slice(a, spec, mesh, g)
+            a = S.local_slice(a, next(leaves), mesh)
         return _to_tensor(a, t.dtype, device)
 
     return _zip_map(numpy_tree, template, conv)

@@ -229,9 +229,11 @@ class CudaMeasurer(MemoryMeasurer):
     ladder (`release()` frees it); a train step updates it in place.
     Measures on one card, or over a {model: M} mesh inside a process group
     of exactly M ranks (`group`: the mesh's model group): each rank runs
-    its shard's prefill or decode step (its params cut by
-    `sharding.init_local_params`, its cache at n_kv_heads / M heads, the
-    step inside `comm.model_axis`), and every reading is reduced with max
+    its shard's prefill, decode or train step (its params cut by
+    `sharding.init_local_params`, its cache at n_kv_heads / M heads, its
+    optimizer state over its shards, the step inside `comm.model_axis`:
+    a train step is tensor-parallel forward and backward), and every
+    reading is reduced with max
     over the ranks before anything classifies it, so every rank reaches
     the same class and plan. The serving knobs of a paged plan
     (kv_block_size > 0) are not measured — the predictor plans them.
@@ -310,6 +312,7 @@ class CudaMeasurer(MemoryMeasurer):
                                       S.default_strategy(cfg, mesh), mesh)
                 params = S.init_local_params(gen, cfg, self.device, specs,
                                              mesh)
+                self._specs = specs
             self._params = (cfg, params)
         return self._params[1]
 
@@ -357,8 +360,6 @@ class CudaMeasurer(MemoryMeasurer):
             raise NotImplementedError(
                 "CudaMeasurer runs ring-cache decode; paged plans "
                 "(kv_block_size > 0) are sized by the predictor")
-        if self.group is not None and shape.kind == TRAIN:
-            raise NotImplementedError(SCH.TENSOR_PARALLEL)
         dev = self.device
         model = int(self.mesh_shape.get("model", 1))
         params = self.params_for(cfg)
@@ -382,7 +383,9 @@ class CudaMeasurer(MemoryMeasurer):
             placed = {"opt": OPT.init_state(tcfg.optimizer, params),
                       "batch": {"tokens": tokens(b, s - n_pre),
                                 "targets": tokens(b, s - n_pre), **prefix}}
-            train = SCH.make_train_step(cfg, tcfg)
+            train = (SCH.make_train_step(cfg, tcfg) if self.group is None
+                     else SCH.make_train_step(cfg, tcfg, mesh=self._mesh(),
+                                              spec_tree=self._specs))
 
             def step():
                 return train(params, placed["opt"], placed["batch"], 0)

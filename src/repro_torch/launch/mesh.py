@@ -217,6 +217,12 @@ def _rank_main(rank, world, backend, kind, init_method, flags, out_dir, fn,
         result = fn(device, *args)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(result, f)
+        # no rank closes its connections while another may still be making
+        # its own: gloo's connectFullMesh of a group (dist.new_group) can
+        # return on one member before its peers have read the handshake,
+        # and a member that then exits fails them with "Connection closed
+        # by peer" (a rank that ran no collective on a new group)
+        dist.barrier()
         dist.destroy_process_group()
     except BaseException:            # reported, then the rank exits non-zero
         traceback.print_exc()

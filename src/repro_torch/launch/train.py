@@ -13,12 +13,16 @@ reference plans for a TPU v5e.
                       the card (core.measure.CudaMeasurer); its params are
                       released before the trainer makes its own, and the
                       planning steps and their time are printed;
-  --mesh ''           the (data, model) host mesh of the world's devices;
+  --mesh ''           the (data, model) host mesh of the world's devices,
+                      its model axis from --model-parallel (which spawns
+                      that many ranks where no world is live);
   --mesh auto         the mesh is a planned output (search.execplan
                       .auto_plan over the world's devices);
   --mesh data:2,pipe:2  a forced mesh: FSDP over "data", the 1F1B pipeline
-                      over "pipe" (a "model" axis above 1 raises: ROADMAP
-                      queue A item 5).
+                      over "pipe", tensor parallelism over "model" (the
+                      single and scan schedules, on the all-attention
+                      dense archs: runtime.schedule.check_training_mesh;
+                      not inside the pipeline).
 
 A mesh of more than one rank runs as that many processes: under
 `torchrun` the world torchrun made (one process per rank, `--mesh auto`
@@ -30,8 +34,12 @@ its rows; rank 0 prints. `main` prints the capacity model's resident +
 transient prediction for the plan under the classified workload and, on a
 CUDA device, the measured `torch.cuda.max_memory_allocated()` beside it;
 on a mesh, one line a rank: its parameter elements, its peak, its flash
-forward / backward launches and the bytes its collectives staged through
-the host.
+forward / backward launches, the bytes its collectives staged through
+the host (in all and by kind), a fingerprint of its final state (params
+and optimizer state) and one of the leaves it holds whole on the model
+axis (equal on the ranks of a model group); and each rank's class and
+plan (the ranks of a `--backend cuda` model axis plan alike: its
+readings are reduced over the ranks).
 
 Examples:
   # tiny CPU run (reduced config), 50 steps:
@@ -47,6 +55,12 @@ Examples:
       --reduced --depth 4 --seq 32 --batch 8 --steps 5 --device cpu \\
       --remat none --microbatches 4 --optimizer adamw_f32 \\
       --mesh data:2,pipe:2
+
+  # four ranks on the CPU, FSDP over data and tensor parallelism over model:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
+      --reduced --depth 4 --seq 32 --batch 8 --steps 5 --device cpu \\
+      --remat none --microbatches 1 --optimizer adamw_f32 \\
+      --mesh data:2,model:2
 """
 from __future__ import annotations
 
@@ -59,6 +73,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import hw as HW
+from repro_torch.checkpoint.ckpt import fingerprint
 from repro_torch.configs import get_config
 from repro_torch.configs.base import TRAIN, ShapeConfig, depth_variant
 from repro_torch.core import measure as MM
@@ -147,31 +162,57 @@ def parse_mesh(spec: str) -> dict:
     return out
 
 
-def _report_ranks(mesh, params, dev, before, steps):
+def _report_ranks(mesh, params, opt_state, spec_tree, dev, before, steps,
+                  plan_line):
     """Rank 0 prints one line a rank: its parameter elements, its peak
-    device memory, its flash launches, and the bytes its collectives staged
-    through the host and the seconds they took (host clock), a step. nccl
-    collectives run on the stream and are not timed."""
-    fwd, bwd, staged, secs = (a - b for a, b in zip(_counters(), before))
+    device memory, its flash launches, the bytes its collectives staged
+    through the host (and by kind) and the seconds they took (host clock),
+    a step; the fingerprint of its params and optimizer state
+    (`ckpt.fingerprint`), and of its params the model axis does not split
+    (equal on every rank of a model group); then each rank's plan line.
+    nccl collectives run on the stream and are not timed. Returns 1 when
+    a rank planned other than rank 0."""
+    fwd, bwd, staged, secs = (a - b for a, b in zip(_counters()[:4],
+                                                     before[:4]))
+    kinds = {k: v - before[4].get(k, 0)
+             for k, v in comm.staged_by_kind.items()
+             if v - before[4].get(k, 0)}
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else None)
     steps = max(steps, 1)
+    whole = [t for t, s in zip(tree_leaves(params), tree_leaves(spec_tree))
+             if "model" not in s.axes()]
     mine = (mesh.rank, sum(x.numel() for x in tree_leaves(params)), peak,
-            fwd, bwd, staged / steps, secs / steps)
+            fwd, bwd, staged / steps, secs / steps,
+            {k: v / steps for k, v in kinds.items()},
+            fingerprint({"params": params, "opt": opt_state}),
+            fingerprint(whole), plan_line)
     rows = [None] * dist.get_world_size()
     dist.all_gather_object(rows, mine)
     gloo = dist.get_backend() == "gloo"
-    for r, n, pk, f, b, st, sec in rows:
+    for r, n, pk, f, b, st, sec, by_kind, fp, fp_whole, _ in rows:
         mem = ("not measured (CPU)" if pk is None
                else f"{pk / 1e9:.3f} GB")
         took = f"{sec:.2f} s a step" if gloo else "not timed (nccl)"
+        kind = ", ".join(f"{k} {v:.0f}" for k, v in sorted(
+            by_kind.items(), key=str)) or "none"
         print(f"rank {r}: param elements {n:,}; max_memory_allocated "
               f"{mem}; flash launches forward {f}, backward {b}; staged "
-              f"through the host {st:.0f} B a step; collectives {took}")
+              f"through the host {st:.0f} B a step; collectives {took}; "
+              f"by kind ({kind}); state fingerprint {fp}; model-whole "
+              f"fingerprint {fp_whole}")
+    for row in rows:
+        print(f"rank {row[0]} plan: {row[-1]}")
+    bad = sum(row[-1] != rows[0][-1] for row in rows)
+    if bad:
+        print(f"ERROR: {bad} rank(s) planned other than rank 0")
+        return 1
+    return 0
 
 
 def _counters():
-    return (FA.launches, FB.launches, comm.staged_bytes, comm.seconds)
+    return (FA.launches, FB.launches, comm.staged_bytes, comm.seconds,
+            dict(comm.staged_by_kind))
 
 
 def predicted_bytes(cfg, shape: ShapeConfig, plan: PR.MemoryPlan, cls,
@@ -200,8 +241,9 @@ def main(argv=None):
                          "'data:2,pipe:2' = forced mesh")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="the host mesh's model axis, as the reference's "
-                         "flag; on one card it has no effect (the axis is "
-                         "clamped to 1)")
+                         "flag: M ranks are spawned (or torchrun's world "
+                         "taken) and the model axis is the largest size "
+                         "up to M that divides the world")
     ap.add_argument("--strategy", default="fastest",
                     choices=list(ST.CLI_STRATEGIES),
                     help="plan-search strategy for the WSMC online phase")
@@ -229,12 +271,26 @@ def main(argv=None):
                                     else "gloo")
     forced_mesh = (parse_mesh(args.mesh) if args.mesh not in ("", "auto")
                    else None)
-    if forced_mesh and forced_mesh.get("model", 1) > 1:
-        raise NotImplementedError(f"--mesh {args.mesh!r}: {SCH.TENSOR_PARALLEL}")
+    if args.model_parallel < 1:
+        ap.error("--model-parallel must be >= 1")
+    cfg = get_config(args.arch)
+    if args.reduced_100m:
+        cfg = reduced_100m(cfg)
+    elif args.reduced:
+        cfg = cfg.reduced()
+    if args.depth:
+        cfg = depth_variant(cfg, args.depth)
+    if forced_mesh and forced_mesh.get("pipe", 1) <= 1:
+        # refused here, before any rank starts
+        SCH.check_training_mesh(cfg, forced_mesh)
     live = dist.is_available() and dist.is_initialized()
     if not live:
         world = (int(os.environ["WORLD_SIZE"]) if LM.under_torchrun()
-                 else 1)
+                 else args.model_parallel if args.mesh == "" else 1)
+        if args.mesh == "" and world > 1:
+            SCH.check_training_mesh(cfg, XP.host_execution(
+                cfg, ShapeConfig("train_cli", TRAIN, args.seq, args.batch),
+                PR.MemoryPlan(), world, args.model_parallel).mesh_shape)
         if forced_mesh:
             n = 1
             for v in forced_mesh.values():
@@ -249,14 +305,6 @@ def main(argv=None):
     world = dist.get_world_size() if live else 1
     if live and dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
-
-    cfg = get_config(args.arch)
-    if args.reduced_100m:
-        cfg = reduced_100m(cfg)
-    elif args.reduced:
-        cfg = cfg.reduced()
-    if args.depth:
-        cfg = depth_variant(cfg, args.depth)
     shape = ShapeConfig("train_cli", TRAIN, args.seq, args.batch)
 
     forced_plan = None
@@ -280,7 +328,7 @@ def main(argv=None):
 
     # ---- WSMC online phase: plan (and possibly the mesh) ----------------
     base_seq = min(64, args.seq)
-    cuda_measurer = None
+    cuda_measurer = mesh = None
     if args.mesh == "auto":
         if args.backend == "cuda":
             cuda_measurer = MM.CudaMeasurer({"data": world})
@@ -301,7 +349,11 @@ def main(argv=None):
             cfg, shape, PR.MemoryPlan(), world,
             args.model_parallel).mesh_shape
         if args.backend == "cuda":
-            measurer = cuda_measurer = MM.CudaMeasurer(mesh_shape)
+            # a model axis measures over its group: the mesh is made now
+            if int(mesh_shape.get("model", 1)) > 1:
+                mesh = LM.build_mesh(mesh_shape)
+            measurer = cuda_measurer = MM.CudaMeasurer(
+                mesh_shape, group=SCH.model_group_of(mesh))
         else:
             measurer = MM.SimulatedMeasurer(mesh_shape)
         # a forced plan is used as it stands; the class still sizes the
@@ -329,7 +381,14 @@ def main(argv=None):
         plan = fit_microbatches(cfg, plan, mesh_shape, args.batch)
         eplan = XP.for_mesh(cfg, shape, plan, mesh_shape, policy=policy)
         print(f"execution: {eplan.describe()}")
-    mesh, strategy = eplan.build(world)
+    if eplan.pipe <= 1:
+        SCH.check_training_mesh(cfg, eplan.mesh_shape, eplan.plan.kv_shard)
+    if mesh is None:
+        mesh, strategy = eplan.build(world)
+    else:
+        strategy = eplan.strategy()
+    plan_line = (f"{cls.category.value} (alpha={cls.alpha:.6f}, "
+                 f"inc={cls.inc:.6f}) -> {eplan.describe()}")
     if cuda_measurer is not None:
         print(f"planning: {cuda_measurer.steps} steps measured on the card "
               f"in {cuda_measurer.step_seconds:.2f}s")
@@ -409,7 +468,8 @@ def main(argv=None):
               f"{peak / 1e9:.3f} GB; predicted {(res + tra) / 1e9:.3f} GB; "
               f"measured / predicted {peak / (res + tra):.4f}")
     if mesh is not None:
-        _report_ranks(mesh, params, dev, before, last - start_step)
+        return _report_ranks(mesh, params, opt_state, spec_tree, dev, before,
+                             last - start_step, plan_line)
     return 0
 
 

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models import layers
+from repro_torch.parallel import comm
 
 NEG_INF = -1e30
 
@@ -569,13 +570,14 @@ def attn_apply(params, cfg: ModelConfig, blk: BlockSpec, x, positions,
     full group of G query heads, since the flattened q and kv dims are
     K-major — and the cache this rank's kv heads; `wo` holds the matching
     rows, and its partial product is summed over the model axis in f32
-    (`layers.out_proj`). head_dim stays the config's.
+    (`layers.out_proj`); the normed input enters through `comm.tp_enter`
+    (its gradient summed over the axis). head_dim stays the config's.
     """
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
     K = params["wk"].shape[-1] // hd
     G = params["wq"].shape[-1] // hd // K
-    h = layers.rmsnorm(params["norm"], x, cfg.norm_eps)
+    h = comm.tp_enter(layers.rmsnorm(params["norm"], x, cfg.norm_eps))
     q = layers.matmul(h, params["wq"]).reshape(b, s, K, G, hd)
     k = layers.matmul(h, params["wk"]).reshape(b, s, K, hd)
     v = layers.matmul(h, params["wv"]).reshape(b, s, K, hd)

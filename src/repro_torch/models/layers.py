@@ -5,15 +5,18 @@ Compute convention (the reference package's): params in cfg.param_dtype
 (bf16), projection matmuls in the working dtype, norms / softmax / logits in
 f32. Random initialisers take an explicit `torch.Generator` and `device`.
 
-Tensor parallelism (serving over a mesh's "model" axis): inside
-`parallel.comm.model_axis` a row-parallel projection's weight and the
-embedding table are this rank's shards of the axis in force (the serving
+Tensor parallelism (serving and training over a mesh's "model" axis):
+inside `parallel.comm.model_axis` a row-parallel projection's weight and
+the embedding table are this rank's shards of the axis in force (the
 mesh's checks make the rows split over it; a weight whose rows disagree
 with the axis raises), and each combines the pieces over that axis's
 group. A row-parallel projection (`out_proj`) sums f32 partial products and rounds
 once to the activation dtype, as one rank's matmul rounds its f32
 accumulator once; a vocab-sharded table embeds by a masked row gather and
-a sum, and its LM head gathers the f32 logits along the vocab.
+a sum, and its LM head takes its input through `comm.tp_enter` and
+gathers the f32 logits along the vocab. The collectives carry their own
+gradients (`parallel.comm`), so the cross entropy of the gathered logits
+trains every rank's shards.
 """
 from __future__ import annotations
 
@@ -266,9 +269,10 @@ def lm_head(params, cfg, x: torch.Tensor) -> torch.Tensor:
     Inside a model axis the table is vocab-sharded: this rank computes (and
     soft-caps) its columns, then gathers the axis's along the vocab, in
     coordinate order, so the argmax of the gathered logits keeps one
-    rank's first-index rule on ties."""
+    rank's first-index rule on ties. There x enters through
+    `comm.tp_enter`: its gradient is the sum of the ranks' columns'."""
     table = params["table"]
-    xf = x.float()
+    xf = comm.tp_enter(x).float()
     V = table.shape[0]
     if V <= _HEAD_SLICE:
         logits = torch.matmul(xf, table.float().t())

@@ -16,11 +16,13 @@ prefill that builds ring caches and recurrent states (`build_cache`) or
 writes a paged pool (and its per-lane rings and states), and decode and
 chunk-append forwards against a cache.
 
-Serving runs tensor-parallel over a mesh's "model" axis inside
-`parallel.comm.model_axis`: attention and the dense MLP are column-
-parallel in (q / k / v, wi) and row-parallel out (wo, summed in f32), the
-embedding and LM head vocab-sharded, the norms replicated; caches hold
-this rank's kv heads (`init_cache(..., model_parallel=)`).
+Serving and training run tensor-parallel over a mesh's "model" axis
+inside `parallel.comm.model_axis`: attention and the dense MLP are
+column-parallel in (q / k / v, wi; their normed input through
+`comm.tp_enter`) and row-parallel out (wo, summed in f32), the embedding
+and LM head vocab-sharded, the norms replicated; caches hold this rank's
+kv heads (`init_cache(..., model_parallel=)`). The collectives carry
+their gradients, so the sequence forward trains there too.
 """
 from __future__ import annotations
 
@@ -87,8 +89,10 @@ def mlp_init(gen, cfg: ModelConfig, device, repeats: int = 0):
 def mlp_apply(params, cfg: ModelConfig, x):
     """The dense MLP. Tensor-parallel: `wi` holds this rank's columns (a
     GLU's [gate_r | val_r], parallel.sharding), `wo` the matching rows,
-    summed over the model axis in f32 (layers.out_proj)."""
-    h = layers.rmsnorm(params["norm"], x, cfg.norm_eps)
+    summed over the model axis in f32 (layers.out_proj); the normed input
+    enters through comm.tp_enter, so training sums its gradient over the
+    axis."""
+    h = comm.tp_enter(layers.rmsnorm(params["norm"], x, cfg.norm_eps))
     up = layers.matmul(h, params["wi"])
     if layers.is_glu(cfg.activation):
         gate, val = torch.chunk(up, 2, dim=-1)

@@ -21,8 +21,12 @@ leaf's squares over the mesh axes that shard it (a replicated leaf counts
 once), and Adafactor's row and column means and its update RMS reduce over
 the axes that shard the reduced dimensions. Adafactor factors a stacked
 [repeats, d] leaf across its repeats (the reference's own, fault F7), so on
-a pipe mesh its column moment reduces over the pipe stages too. The
-state mirrors the parameters' specs (`state_specs`).
+a pipe mesh its column moment reduces over the pipe stages too. A model
+axis is one more such axis: a GLU `wi` split over it holds [gate_r |
+val_r] columns, and its column moment the same columns (`state_specs`
+keeps its `axes.GluSpec`); means and norms are sums, which the columns'
+order does not change. The state mirrors the parameters' specs
+(`state_specs`).
 """
 from __future__ import annotations
 
@@ -102,7 +106,7 @@ def state_specs(ocfg: OptimizerConfig, param_spec_tree):
     def one(spec):
         if len(spec) >= 2:
             return {"vr": Spec(spec[:-1]),
-                    "vc": Spec(tuple(spec[:-2]) + (spec[-1],))}
+                    "vc": type(spec)(tuple(spec[:-2]) + (spec[-1],))}
         return {"v": Spec(spec)}
     return {"f": tree_map(one, param_spec_tree), "count": Spec()}
 

@@ -56,6 +56,13 @@ class Spec(tuple):
         return tuple(out)
 
 
+class GluSpec(Spec):
+    """The Spec of a GLU MLP's `wi`, whose last dim is [gate | val]: equal
+    to the plain Spec (and to the reference's PartitionSpec), and telling
+    `sharding.local_slice` / `gather_leaf` that a rank's block of that dim
+    is [gate_r | val_r], each half cut alike."""
+
+
 def np_prod(xs):
     r = 1
     for x in xs:

@@ -29,12 +29,28 @@ Ranks of a group are numbered as `launch.mesh.Mesh` makes them: a group
 along one mesh axis lists its global ranks in the order of that axis's
 coordinate, so group rank = coordinate.
 
-Tensor parallelism (serving, Megatron-style): inside `model_axis(group)`
-the model's layers find their weights cut over `group` (column-parallel
-q / k / v / wi, row-parallel wo, a vocab-sharded table) and combine them
-with `tp_sum` (f32 partial products summed, rounded once by the caller)
-and `tp_gather_last` (vocab-sharded logits gathered along the last dim).
-Forward only: no gradient flows through them.
+Tensor parallelism (Megatron-style, for serving and training): inside
+`model_axis(group)` the model's layers find their weights cut over
+`group` (column-parallel q / k / v / wi, row-parallel wo, a vocab-sharded
+table) and combine them with `tp_sum` (f32 partial products summed,
+rounded once by the caller), `tp_gather_last` (vocab-sharded logits
+gathered along the last dim) and `tp_enter` (a replicated activation
+entering a column-parallel product). Each is an autograd Function whose
+backward is the collective's transpose, so a loss computed alike on every
+rank of the group gives every rank the gradient of its own shards:
+
+- `tp_sum`: all-reduce forward, identity backward (the sum's gradient
+  reaches each partial unchanged; Megatron's g);
+- `tp_enter`: identity forward, all-reduce of the gradient backward (each
+  rank's column products give only its share of the input's gradient;
+  Megatron's f);
+- `tp_gather_last`: all-gather forward, backward this rank's slice of the
+  gathered gradient.
+
+The forward of each is the plain collective, bit for bit. A gradient
+leaving the model code is then equal on every rank of the group for a
+replicated leaf (norms) and this rank's own for a sharded one: nothing
+sums the weights' gradients over the model axis.
 """
 from __future__ import annotations
 
@@ -52,7 +68,8 @@ import torch.distributed as dist
 staged_bytes = 0
 seconds = 0.0
 # staged_bytes split by call kind: the collective's name, or the label its
-# caller gave ("tp_partial_sum", "tp_vocab_gather", "tp_embed", "tp_mass")
+# caller gave ("tp_partial_sum", "tp_vocab_gather", "tp_embed", "tp_mass",
+# "tp_enter_grad")
 staged_by_kind = collections.Counter()
 _kind = None
 
@@ -233,13 +250,15 @@ class AllGather(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# Tensor parallelism over the model group (forward only)
+# Tensor parallelism over the model group
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
 def model_axis(group):
     """Run the enclosed model code tensor-parallel over `group` (a mesh's
-    "model" group); None, or a group of one rank, runs it whole."""
+    "model" group); None, or a group of one rank, runs it whole. A
+    training step runs its forward and backward inside it (a recomputed
+    forward reads it again)."""
     global _model_group
     prev = _model_group
     _model_group = (group if group is not None
@@ -269,14 +288,57 @@ def model_rank() -> int:
     return 0 if _model_group is None else dist.get_rank(_model_group)
 
 
+class _TPSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, kind):
+        return all_reduce(t, group, kind=kind)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _TPEnter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad, ctx.group, kind="tp_enter_grad"), None
+
+
+class _TPGatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.rank, ctx.width = dist.get_rank(group), t.shape[-1]
+        return all_gather(t, group, dim=t.dim() - 1, kind="tp_vocab_gather")
+
+    @staticmethod
+    def backward(ctx, grad):
+        w = ctx.width
+        return grad[..., ctx.rank * w:(ctx.rank + 1) * w].contiguous(), None
+
+
 def tp_sum(t: torch.Tensor, kind: str = "tp_partial_sum") -> torch.Tensor:
     """The sum of `t` over the model group, in `t`'s dtype (f32 partial
-    products: the caller rounds the sum once)."""
-    return all_reduce(t, model_group(), kind=kind)
+    products: the caller rounds the sum once). Backward: the gradient
+    unchanged."""
+    return _TPSum.apply(t, model_group(), kind)
+
+
+def tp_enter(t: torch.Tensor) -> torch.Tensor:
+    """`t` (replicated over the model group) as the input of this rank's
+    column-parallel products: unchanged forward; backward, the gradient
+    summed over the group. Outside a model axis, `t` itself."""
+    if _model_group is None:
+        return t
+    return _TPEnter.apply(t, _model_group)
 
 
 def tp_gather_last(t: torch.Tensor) -> torch.Tensor:
     """The model group's shards of `t` concatenated along its last dim, in
-    coordinate order (vocab-sharded logits)."""
-    return all_gather(t, model_group(), dim=t.dim() - 1,
-                      kind="tp_vocab_gather")
+    coordinate order (vocab-sharded logits). Backward: this rank's slice
+    of the gradient."""
+    return _TPGatherLast.apply(t, model_group())

@@ -27,15 +27,19 @@ a unit's weights just before the unit runs, keeping what autograd saves of
 them as the shard. This module imports torch only inside the functions
 that run collectives: the planner imports it.
 
-The spec tree's "model" entries execute for serving (tensor parallelism:
-the rank's heads, FFN columns and vocab rows stay local,
-`parallel.comm.model_axis` combines them). A GLU MLP's `wi` holds
-[gate | val] on its last dim (2 x d_ff), and `models.model.mlp_apply`
-splits it in two: a rank's shard of that dim is its slice of each half,
-[gate_r | val_r], not a contiguous cut (which would give rank 0 all of
-the gate). `local_slice(..., glu=True)`, `local_shard(..., cfg=)` and
-`init_local_params` cut such leaves so; the element count is the spec
-tree's shard either way.
+The spec tree's "model" entries execute for serving and training
+(tensor parallelism: the rank's heads, FFN columns and vocab rows stay
+local, `parallel.comm.model_axis` combines them; FSDP's `Gatherer`
+gathers over the data axes only). A GLU MLP's `wi` holds [gate | val] on
+its last dim (2 x d_ff), and `models.model.mlp_apply` splits it in two: a
+rank's shard of that dim is its slice of each half, [gate_r | val_r], not
+a contiguous cut (which would give rank 0 all of the gate).
+`param_specs` gives such a leaf an `axes.GluSpec` (equal to the plain
+spec), the one mark of that layout: `local_slice` (so `local_shard`,
+`init_local_params` and `convert.params_from_jax`) cuts a leaf under one
+so, and `gather_leaf` undoes the cut when it rebuilds the whole leaf (a
+checkpoint's save); the element count is the spec tree's shard either
+way.
 """
 from __future__ import annotations
 
@@ -207,8 +211,9 @@ def param_specs(cfg: ModelConfig, params, strategy: Strategy, mesh):
         logical = _param_axes(names, len(shape) - (1 if stacked else 0))
         if stacked:
             logical = ("layers",) + logical
-        return pax.logical_to_spec(logical, rules=rules, mesh=mesh,
+        spec = pax.logical_to_spec(logical, rules=rules, mesh=mesh,
                                    shape=shape)
+        return pax.GluSpec(spec) if _is_glu_leaf(cfg, path) else spec
 
     return _map_leaves(leaf_spec, params)
 
@@ -275,10 +280,12 @@ def _slices(shape, spec, mesh):
     return tuple(out)
 
 
-def local_slice(x, spec, mesh, glu: bool = False):
+def local_slice(x, spec, mesh):
     """This rank's block of `x` (a torch tensor or numpy array; a view).
-    With `glu` the last dim is [gate | val] and each half is cut alike: the
-    block is [gate_r | val_r] (a copy where the last dim splits)."""
+    Under a `GluSpec` the last dim is [gate | val] and each half is cut
+    alike: the block is [gate_r | val_r] (a copy where the last dim
+    splits)."""
+    glu = isinstance(spec, pax.GluSpec)
     sl = _slices(x.shape, spec, mesh)
     last = sl[-1] if sl else None
     if not glu or last is None or last.stop - last.start == x.shape[-1]:
@@ -296,36 +303,29 @@ def local_slice(x, spec, mesh, glu: bool = False):
     return torch.cat(parts, dim=-1)
 
 
-def is_glu_leaf(cfg: ModelConfig, path) -> bool:
+def _is_glu_leaf(cfg: ModelConfig, path) -> bool:
     """A GLU MLP's `wi` ([gate | val] on its last dim)."""
     names, _ = _path_names(path)
     return (bool(names) and names[-1] == "wi" and "mlp" in names
             and cfg.activation in ("swiglu", "geglu"))
 
 
-def glu_tree(cfg: ModelConfig, tree):
-    """A bool for every leaf of a params tree: is_glu_leaf."""
-    return _map_leaves(lambda path, _: is_glu_leaf(cfg, path), tree)
-
-
 def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
     return tuple(s.stop - s.start for s in _slices(shape, spec, mesh))
 
 
-def local_shard(tree, spec_tree, mesh, cfg: Optional[ModelConfig] = None):
+def local_shard(tree, spec_tree, mesh):
     """This rank's slice of every leaf of `tree` under `spec_tree`, each
-    in storage of its own (the full leaves can be freed). With `cfg` (a
-    params tree) a GLU `wi` is cut half by half."""
+    in storage of its own (the full leaves can be freed); a `GluSpec` leaf
+    cut half by half."""
     from repro_torch.tree import tree_map
-    glu = (glu_tree(cfg, tree) if cfg is not None
-           else tree_map(lambda _: False, spec_tree))
 
-    def one(t, spec, g):
+    def one(t, spec):
         import torch
-        return local_slice(t, spec, mesh, g).clone(
+        return local_slice(t, spec, mesh).clone(
             memory_format=torch.contiguous_format)
 
-    return tree_map(one, tree, spec_tree, glu)
+    return tree_map(one, tree, spec_tree)
 
 
 def _gather_axes(spec, mesh, axes):
@@ -339,20 +339,41 @@ def _gather_axes(spec, mesh, axes):
     return out
 
 
+def _unglu(x, pieces: int):
+    """[gate_0 | val_0 | gate_1 | val_1 | ...] (`pieces` blocks along the
+    last dim, as the ranks' GLU cuts concatenate) -> [gate | val]."""
+    w = x.shape[-1] // (2 * pieces)
+    return x.unflatten(-1, (pieces, 2, w)).transpose(-3, -2).flatten(-3)
+
+
+def _gather(local, spec, mesh, axes, gather):
+    """`gather(tensor, group, dim)` over the (dim, axis) pairs of
+    _gather_axes; a `GluSpec` leaf's gathered last dim put back in
+    [gate | val] order."""
+    pieces = 1
+    for d, a in _gather_axes(spec, mesh, axes):
+        local = gather(local, mesh.groups[a], d)
+        if d == len(spec) - 1:
+            pieces *= mesh.shape[a]
+    if pieces > 1 and isinstance(spec, pax.GluSpec):
+        local = _unglu(local, pieces)
+    return local
+
+
 def gather_leaf(local, spec, mesh, axes: Optional[Sequence[str]] = None):
     """The leaf rebuilt from this rank's shard: all-gathered over the mesh
-    axes its spec names (`axes` limits which). Autograd reduce-scatters
-    (sums) the gradient back to the shard."""
+    axes its spec names (`axes` limits which), a `GluSpec` leaf in
+    [gate | val] order. Autograd reduce-scatters (sums) the gradient back
+    to the shard."""
     from repro_torch.parallel import comm
-    for d, a in _gather_axes(spec, mesh, axes):
-        local = comm.AllGather.apply(local, mesh.groups[a], d)
-    return local
+    return _gather(local, spec, mesh, axes, comm.AllGather.apply)
 
 
 def gather_tree(local_tree, spec_tree, mesh,
                 axes: Optional[Sequence[str]] = None):
     """gather_leaf over every leaf of a tree (forward: all-gather; backward:
-    reduce-scatter of the gradient)."""
+    reduce-scatter of the gradient); a `GluSpec` leaf in [gate | val]
+    order."""
     from repro_torch.tree import tree_map
     return tree_map(lambda t, s: gather_leaf(t, s, mesh, axes), local_tree,
                     spec_tree)
@@ -360,24 +381,24 @@ def gather_tree(local_tree, spec_tree, mesh,
 
 def _gather_plain(local, spec, mesh, axes):
     from repro_torch.parallel import comm
-    for d, a in _gather_axes(spec, mesh, axes):
-        local = comm.all_gather(local, mesh.groups[a], d)
-    return local
+    return _gather(local, spec, mesh, axes, comm.all_gather)
 
 
 def unit_specs(spec_tree):
     """The per-repeat specs of params["units"]: each unit leaf's spec
-    without its leading ("layers") entry."""
+    without its leading ("layers") entry (of the same kind)."""
     from repro_torch.tree import tree_map
-    return tree_map(lambda s: pax.Spec(s[1:]), spec_tree["units"])
+    return tree_map(lambda s: type(s)(s[1:]), spec_tree["units"])
 
 
 class Gatherer:
     """Gathers a sharded parameter tree where it is used (ZeRO-3): the
     non-unit leaves as the forward starts, each unit repeat's leaves as the
     repeat runs (`unit_wrapper`), over the mesh axes in `axes` (the FSDP
-    axes; a pipeline stage keeps its own layers). A weight gathered by the
-    function a `saving()` context yields is kept, wherever autograd saves
+    axes: a pipeline stage keeps its own layers, and a model axis its
+    tensor-parallel shards, which the model code combines). A weight
+    gathered by the function a `saving()` context yields is kept, wherever
+    autograd saves
     it (or a view of it) inside that context, as its shard, and gathered
     again when the backward needs it: a rank holds its shards plus one
     unit's gathered weights."""
@@ -476,7 +497,8 @@ def init_local_params(gen, cfg: ModelConfig, device, spec_tree, mesh):
     same draws from `gen` in the same order, each random leaf drawn whole
     (one at a time) and cut to its shard at once, so the full tree never
     exists on the device. The leaves made otherwise (norms, conv taps,
-    RG-LRU gates) are small and cut after."""
+    RG-LRU gates) are small and cut after. `spec_tree` is `param_specs`'s
+    (its `GluSpec` leaves are cut half by half)."""
     from repro_torch.models import layers
     from repro_torch.models.model import init_params
     from repro_torch.tree import tree_map, tree_paths
@@ -486,14 +508,12 @@ def init_local_params(gen, cfg: ModelConfig, device, spec_tree, mesh):
         abstract = init_params(None, cfg, device="meta")
     finally:
         layers._normal = draw
-    spec_of = {id(t): (s, is_glu_leaf(cfg, p))
-               for (p, t), (_, s) in zip(tree_paths(abstract),
-                                         tree_paths(spec_tree))}
+    spec_of = {id(t): s for (_, t), (_, s) in zip(tree_paths(abstract),
+                                                  tree_paths(spec_tree))}
     order, cut = iter([spec_of[id(t)] for t in drawn]), set()
 
     def keep(full):
-        spec, glu = next(order)
-        t = local_slice(full, spec, mesh, glu).clone()
+        t = local_slice(full, next(order), mesh).clone()
         cut.add(id(t))
         return t
 
@@ -502,6 +522,5 @@ def init_local_params(gen, cfg: ModelConfig, device, spec_tree, mesh):
         params = init_params(gen, cfg, device=device)
     finally:
         layers._normal = draw
-    return tree_map(lambda t, s, g: t if id(t) in cut
-                    else local_slice(t, s, mesh, g).clone(), params,
-                    spec_tree, glu_tree(cfg, params))
+    return tree_map(lambda t, s: t if id(t) in cut
+                    else local_slice(t, s, mesh).clone(), params, spec_tree)

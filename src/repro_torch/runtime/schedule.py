@@ -21,6 +21,10 @@ gradients reduce-scattered; every rank reads the same global batch and
 keeps its rows of each microbatch; the gradient is the mean over the data
 axes, and the leaves a stage shares with the others (embedding, final
 norm, head) take the sum of the stages' gradients, so they stay equal.
+A "model" axis runs the single and scan schedules tensor-parallel: the
+forward and backward inside `comm.model_axis`, whose collectives carry
+their gradients, so each rank's shards get their own gradients and the
+leaves it replicates (norms) the same gradient on every model rank.
 
 `make_train_step(cfg, tcfg, mesh=..., schedule="auto")` dispatches; the
 `runtime.train_step.make_train_step(cfg, tcfg)` facade delegates here.
@@ -51,25 +55,17 @@ from repro_torch.tree import tree_leaves, tree_map
 
 DATA_AXES = ("pod", "data")
 
-TENSOR_PARALLEL = ("training on a model axis above 1 (tensor "
-                   "parallelism's backward, expert parallelism, "
-                   "kv_shard='seq') is not ported: ROADMAP queue A item 5")
-
 _NOT_PORTED = "is not ported: ROADMAP queue A item 5"
 
 
-def serving_mesh_problems(cfg: ModelConfig, mesh_shape,
-                          kv_shard: str = "heads") -> list:
-    """Why serving cannot run on `mesh_shape` ({axis: size}) with the
-    cache layout `kv_shard`: serving is tensor-parallel over "model" on
-    the all-attention dense archs, the cache split over kv heads, every
-    other axis of size 1. Each reason names ROADMAP queue A item 5."""
+def model_axis_problems(cfg: ModelConfig, m: int,
+                        kv_shard: str = "heads") -> list:
+    """Why `cfg` cannot run tensor-parallel on a model axis of `m` with
+    the cache layout `kv_shard` (empty: it can): the all-attention dense
+    archs, heads, kv heads, d_ff and the padded vocab split over the axis,
+    the cache over kv heads. Serving and training share this one list;
+    each reason names ROADMAP queue A item 5."""
     out = []
-    for axis in ("pod", "data", "pipe"):
-        if int(mesh_shape.get(axis, 1)) > 1:
-            out.append(f"serving over a {axis!r} axis above 1 (the paged "
-                       f"pool's blocks sharded over it) {_NOT_PORTED}")
-    m = int(mesh_shape.get("model", 1))
     if m <= 1:
         return out
     if any(b.is_recurrent for b in cfg.blocks()):
@@ -97,13 +93,42 @@ def serving_mesh_problems(cfg: ModelConfig, mesh_shape,
     return out
 
 
-def check_serving_mesh(cfg: ModelConfig, mesh_shape,
-                       kv_shard: str = "heads"):
-    """Raise NotImplementedError with serving_mesh_problems' first reason."""
-    problems = serving_mesh_problems(cfg, mesh_shape, kv_shard)
+def serving_mesh_problems(cfg: ModelConfig, mesh_shape,
+                          kv_shard: str = "heads") -> list:
+    """Why serving cannot run on `mesh_shape` ({axis: size}) with the
+    cache layout `kv_shard`: serving is tensor-parallel over "model"
+    (model_axis_problems), every other axis of size 1. Each reason names
+    ROADMAP queue A item 5."""
+    out = []
+    for axis in ("pod", "data", "pipe"):
+        if int(mesh_shape.get(axis, 1)) > 1:
+            out.append(f"serving over a {axis!r} axis above 1 (the paged "
+                       f"pool's blocks sharded over it) {_NOT_PORTED}")
+    return out + model_axis_problems(cfg, int(mesh_shape.get("model", 1)),
+                                     kv_shard)
+
+
+def _check(problems, cfg, mesh_shape):
     if problems:
         raise NotImplementedError(f"{cfg.name} on {dict(mesh_shape)}: "
                                   f"{problems[0]}")
+
+
+def check_serving_mesh(cfg: ModelConfig, mesh_shape,
+                       kv_shard: str = "heads"):
+    """Raise NotImplementedError with serving_mesh_problems' first reason."""
+    _check(serving_mesh_problems(cfg, mesh_shape, kv_shard), cfg,
+           mesh_shape)
+
+
+def check_training_mesh(cfg: ModelConfig, mesh_shape,
+                        kv_shard: str = "heads"):
+    """Raise NotImplementedError with the first reason the single and scan
+    schedules cannot train on `mesh_shape`: model_axis_problems of its
+    model axis (a model axis inside the pipeline is validate_pipeline's
+    refusal, the reference's)."""
+    _check(model_axis_problems(cfg, int(mesh_shape.get("model", 1)),
+                               kv_shard), cfg, mesh_shape)
 
 
 def _shape_of(mesh):
@@ -193,7 +218,11 @@ def sync_grads(grads, spec_tree, mesh):
     that do not shard it (a leaf split over "data" had its sum in the
     gather's reduce-scatter), then divided by the data-parallel degree:
     the mean over the data ranks' losses, and for a leaf every stage holds,
-    the sum of the stages' parts."""
+    the sum of the stages' parts. The "model" axis is left unreduced: a
+    leaf split over it has its own gradient on each rank, and a leaf it
+    replicates has the same gradient on every model rank already (the
+    tensor-parallel collectives' backward, parallel.comm), so a sum would
+    count it M times."""
     axes = _live_axes(mesh, DATA_AXES + ("pipe",))
     dp = data_parallel(mesh)
 
@@ -223,8 +252,17 @@ def mean_metrics(metrics, mesh):
 
 def fsdp_axes(mesh):
     """The axes a rank gathers weights over: every mesh axis but "pipe"
-    (a stage keeps its own layers)."""
-    return [a for a in mesh.axis_names if a != "pipe"]
+    (a stage keeps its own layers) and "model" (tensor parallelism keeps
+    its shards local)."""
+    return [a for a in mesh.axis_names if a not in ("pipe", "model")]
+
+
+def model_group_of(mesh):
+    """The mesh's model group where its model axis is above 1, else
+    None (what `comm.model_axis` takes)."""
+    if mesh is None or mesh.axis_size("model") <= 1:
+        return None
+    return mesh.groups["model"]
 
 
 # ---------------------------------------------------------------------------
@@ -358,7 +396,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainStepConfig, *,
     On a `launch.mesh.Mesh` of more than one rank, params and opt_state
     are this rank's shards under `spec_tree` (sharding.param_specs;
     required there), `batch` the global batch. The pipeline schedule
-    needs such a mesh."""
+    needs such a mesh; a model axis runs the single and scan schedules
+    (check_training_mesh) and not the pipeline (validate_pipeline)."""
     if schedule == "auto":
         schedule = schedule_kind(TRAIN, tcfg.microbatches, pipe_size_of(mesh))
     if schedule not in SCHEDULES:
@@ -368,8 +407,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainStepConfig, *,
         raise ValueError("pipeline_1f1b schedule needs a mesh of ranks "
                          "(launch.mesh.Mesh)")
     if sharded:
-        if mesh.axis_size("model") > 1:
-            raise NotImplementedError(TENSOR_PARALLEL)
+        if schedule != SCHEDULE_PIPELINE:
+            check_training_mesh(cfg, mesh.shape)
         if spec_tree is None:
             raise ValueError("a mesh of more than one rank needs the "
                              "params' spec_tree")
@@ -377,8 +416,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainStepConfig, *,
         compute_grads = _single_shot(make_pipeline_loss_fn(cfg, tcfg, mesh,
                                                            spec_tree))
     else:
-        gat = (S.Gatherer(spec_tree, mesh, fsdp_axes(mesh)) if sharded
-               else None)
+        gat = (S.Gatherer(spec_tree, mesh, fsdp_axes(mesh))
+               if sharded and _live_axes(mesh, fsdp_axes(mesh)) else None)
         grad_fn = value_and_grad(make_loss_fn(cfg, tcfg, gat))
         if schedule == SCHEDULE_SCAN:
             if tcfg.microbatches <= 1:
@@ -417,10 +456,14 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainStepConfig, *,
 def _on_mesh(compute_grads, mesh, spec_tree, n_micro):
     """A single / scan schedule on a mesh: this rank's rows of the global
     batch in, its shards' gradients reduced over the mesh and the metrics'
-    data mean out."""
+    data mean out; forward and backward tensor-parallel over the model
+    axis."""
+    group = model_group_of(mesh)
+
     def compute(params, batch):
-        grads, metrics = compute_grads(params, data_rows(batch, mesh,
-                                                          n_micro))
+        with comm.model_axis(group):
+            grads, metrics = compute_grads(params, data_rows(batch, mesh,
+                                                              n_micro))
         return sync_grads(grads, spec_tree, mesh), mean_metrics(metrics,
                                                                 mesh)
     return compute

@@ -31,7 +31,6 @@ from repro.models import init_params as jax_init_params
 from repro.models.attention import AttnSettings as JAS
 from repro.runtime import serve_step as JSS
 from repro.serving.executor import JaxExecutor, PagedJaxExecutor
-from repro_torch.checkpoint import ckpt as CK
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.core import measure as TMM
@@ -39,9 +38,10 @@ from repro_torch.launch import mesh as LM
 from repro_torch.launch import serve as SV
 from repro_torch.models import init_params
 from repro_torch.parallel import sharding as S
+from repro_torch.parallel.axes import GluSpec, Spec
 from repro_torch.runtime import schedule as SCH
 from repro_torch.serving.executor import PagedTorchExecutor
-from repro_torch.tree import tree_leaves, tree_paths
+from repro_torch.tree import tree_leaves
 
 from _torch_parity import to_np, tree_np
 import _torch_tp_ranks as R
@@ -117,13 +117,11 @@ def _specs(cfg, mesh):
                          S.default_strategy(cfg, mesh), mesh)
 
 
-def _reassemble(cfg, shards_by_rank, specs):
+def _reassemble(shards_by_rank, specs):
     """The full leaves from every rank's shards: concatenated along the
     dimension the spec puts on "model"; a GLU wi's gate halves first, then
     its val halves."""
     out = []
-    abstract = init_params(None, cfg, device="meta")
-    glu = [S.is_glu_leaf(cfg, p) for p, _ in tree_paths(abstract)]
     per_rank = [tree_leaves(t) for t in shards_by_rank]
     for i, spec in enumerate(tree_leaves(specs)):
         parts = [leaves[i] for leaves in per_rank]
@@ -134,7 +132,7 @@ def _reassemble(cfg, shards_by_rank, specs):
             out.append(parts[0])
             continue
         d, = dims
-        if glu[i]:
+        if isinstance(spec, GluSpec):
             halves = [p.chunk(2, dim=d) for p in parts]
             out.append(torch.cat([h[0] for h in halves]
                                  + [h[1] for h in halves], dim=d))
@@ -156,7 +154,7 @@ def test_glu_wi_shards_hold_matching_gate_and_val_halves():
     assert spec[-1] == "model"
 
     def cut(mesh):
-        return S.local_slice(full, spec, mesh, glu=True)
+        return S.local_slice(full, spec, mesh)
 
     shards = R.shards_on_every_rank(M, cut)
     w = F // M
@@ -168,8 +166,12 @@ def test_glu_wi_shards_hold_matching_gate_and_val_halves():
     halves = [s.chunk(2, dim=-1) for s in shards]
     assert torch.equal(torch.cat([h[0] for h in halves]
                                  + [h[1] for h in halves], dim=-1), full)
-    # the contiguous cut gives rank 0 the whole gate: the trap it avoids
-    assert torch.equal(S.local_slice(full, spec, mesh0), full[..., :F])
+    # the spec tree marks the leaf (axes.GluSpec), so its own cut is the
+    # GLU one; under a plain spec the contiguous cut gives rank 0 the whole
+    # gate: the trap it avoids
+    assert isinstance(spec, GluSpec)
+    assert torch.equal(S.local_slice(full, Spec(spec), mesh0),
+                       full[..., :F])
 
 
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "gemma3-12b"])
@@ -199,7 +201,7 @@ def test_rank_shards_reassemble_the_tree(arch, source):
         assert [tuple(t.shape) for t in tree_leaves(sh)] == [
             S.local_shape(t.shape, s, mesh) for t, s in
             zip(tree_leaves(whole), tree_leaves(specs))]
-    got = _reassemble(cfg, shards, specs)
+    got = _reassemble(shards, specs)
     for a, b in zip(got, tree_leaves(whole)):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
@@ -324,9 +326,10 @@ def test_serving_refusals_name_queue_a_item_5(arch, mesh, what):
         SCH.check_serving_mesh(cfg, mesh)
 
 
-def test_tp_refusals_elsewhere_name_queue_a_item_5(tmp_path):
+def test_tp_refusals_elsewhere_name_queue_a_item_5():
     """The serving mesh checks pass where they should; the executors, the
-    measurer, the checkpoint and the CLI refuse what stays out."""
+    measurer, the training mesh check and the CLI refuse what stays
+    out."""
     cfg = get_config(R.ARCH).reduced()
     assert SCH.serving_mesh_problems(get_config(R.ARCH),
                                      {"data": 1, "model": 4}) == []
@@ -347,11 +350,13 @@ def test_tp_refusals_elsewhere_name_queue_a_item_5(tmp_path):
     model2 = LM.Mesh(axis_names=("data", "model"),
                      shape={"data": 1, "model": 2},
                      coords={"data": 0, "model": 0}, groups={}, rank=0)
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        CK.save(str(tmp_path / "c"), 1, {"w": torch.zeros(2)}, mesh=model2)
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        CK.restore(str(tmp_path / "c"), {"w": torch.zeros(2)},
-                   device="cpu", mesh=model2)
+    # a mesh checkpoint of a model axis is ported
+    # (tests/test_torch_tp_train.py); training over recurrent or MoE
+    # blocks on one is not
+    assert model2.axis_size("model") == 2
+    for arch in ("xlstm-1.3b", "mixtral-8x7b"):
+        with pytest.raises(NotImplementedError, match="queue A item 5"):
+            SCH.check_training_mesh(get_config(arch).reduced(), model2.shape)
     with pytest.raises(NotImplementedError, match="queue A item 5"):
         SV.main(["--arch", "xlstm-1.3b", "--reduced", "--device", "cpu",
                  "--kv", "paged", "--model-parallel", "2"])

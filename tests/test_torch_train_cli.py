@@ -124,7 +124,7 @@ def test_hardware_changes_the_plan(capsys, monkeypatch):
 def test_refusals():
     argv = REDUCED + ["--device", "cpu"]
     with pytest.raises(NotImplementedError, match="queue A item 5"):
-        LT.main(argv + ["--mesh", "data:2,model:2"])
+        LT.main(argv + ["--arch", "xlstm-1.3b", "--mesh", "data:2,model:2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             LT.main(argv + ["--backend", "cuda"])
