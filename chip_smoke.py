@@ -15,6 +15,8 @@
     python3 chip_smoke.py --phases 1,15   # build + the dry-run, roofline,
                                           # hillclimb and reports only
     python3 chip_smoke.py --phases 1,16   # build + serving on a model axis
+    python3 chip_smoke.py --phases 1,16 --tp-runs f
+                                          # build + phase 16's run (f)
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. device: the card's name and power limit, its properties beside the
@@ -142,8 +144,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      flash launches (forward and backward, planning steps included, both
      > 0); fails on a non-zero return or a measured peak above the card's
      memory.
- 13. MoE and prefix embeddings at full width: (a) mixtral-8x7b at 16 of
-     its 32 layers (depth the one cut; 47 GB of bf16 weights) through the
+ 13. MoE and prefix embeddings at full width: (a) mixtral-8x7b at 8 of
+     its 32 layers (depth the one cut; 23 GB of bf16 weights) through the
      compacted chunked paged engine as in phase 3 (8 lanes, blocks of 16,
      chunks of 256, a bf16 pool, 16 seeded requests with prompts of
      64-2048, strict audit), launches counted exactly; four requests
@@ -223,10 +225,24 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      peak of each planning step beside the simulator's; (d) 8 of
      mistral-nemo-12b's layers on model:4, 4 requests; (e) gemma3-12b at
      12 layers on model:2 through the slot engine (ring decode on the
-     local and global rings, flash prefill). Each run writes, for every
-     token, the top 8 logits of the step that emitted it (--tokens-out);
-     then one rank of the same CLI and trace, in process, replays the
-     ranks' tokens (--replay) and logs its own. Fails on a rank's non-zero
+     local and global rings, flash prefill); (f) mixtral-8x7b at full
+     width and TP_MOE_DEPTH (8) of its 32 layers on model:2 under expert
+     parallelism (each rank 4 of its 8 experts), paged as (a), its ranks'
+     MoE routes written (--routes-out); (g) mixtral-8x7b at TP_EXPERTS_DEPTH
+     (2) layers on model:2 under tensor parallelism inside the experts
+     (Strategy(ep=False), which no CLI switch selects): rank functions
+     that launch.mesh.spawn_ranks starts serve one request (a 300-token
+     prompt in chunks and 5 decode steps) through the paged engine. Each run
+     writes, for every token, the top 8 logits of the step that emitted
+     it (--tokens-out); then one rank of the same CLI and trace, in
+     process, replays the ranks' tokens (--replay) and logs its own; the
+     one-rank replays of (f) and (g) also take the ranks' MoE routes
+     (--replay-routes), so that the comparison judges the sharded expert
+     products; the ranks' kept choices must be those the capacity of the
+     global expert count keeps of their experts, exactly; where the one
+     rank's own router would have chosen otherwise on that replay, and a
+     free replay of (f) (its own routes), are counted, not judged. Fails
+     on a rank's non-zero
      exit, ranks emitting, scheduling or planning apart, one rank
      scheduling other block tables (retention's drops) under the same
      tokens, the two sides' top logits more than TP_DRIFT_BOUND of the
@@ -235,9 +251,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      elements other than the spec tree's, a pool other than the
      predictor's per-device blocks, or attention launches other than
      layers x steps a rank; prints each rank's peak against the plan's
-     prediction and the bytes it staged through the host by kind. Phase
-     2 holds the four kernels at the ranks' head counts, and the flash
-     forward and backward at phase 14's.
+     prediction, its peak while drawing its shards and the bytes it
+     staged through the host by kind. Phase 2 holds the four kernels at
+     the ranks' head counts (mixtral's under its window too), and the
+     flash forward and backward at phase 14's.
   then: each kernel timed at the largest shape its path launched it at
   (the paged kernels also at every shape phase 3 launched them at, with
   the launches each shape had and the sum of launches x time)
@@ -318,7 +335,7 @@ from repro_torch.serving import (BlockAllocator, Engine, leak_check,  # noqa: E4
                                  synthetic_trace, trace_context)
 from repro_torch.serving import quality as Q  # noqa: E402
 from repro_torch.serving.executor import (  # noqa: E402
-    PagedTorchExecutor, TorchExecutor)
+    PagedTorchExecutor, TokenLog, TorchExecutor)
 from repro_torch.tree import tree_leaves, tree_map, tree_paths  # noqa: E402
 
 DEV = torch.device("cuda:0")
@@ -1337,6 +1354,18 @@ def phase_kernels():
           hd=128)
         f(f"tp K{K} G4 hd128 prefill w2 s520 ragged bf16", b=2, s=520,
           lens=[520, 256], K=K, G=4, hd=128)
+    # phase 16(f) and (g): mixtral-8x7b on model:2, each rank at 4 of its
+    # 8 kv heads (G 4, hd 128, the heads of mistral-nemo-12b's ranks above)
+    # under its 4096 window, which no position of the trace's 1056-position
+    # context leaves
+    MX4 = dict(K=4, G=4, hd=128, window=4096)
+    d("tp mixtral K4 w8 mixed window4096 bf16", codec="bf16", bs=16,
+      lens=[1056, 300, 1040, 64, 520, 1024, 80, 700], **MX4)
+    p("tp mixtral K4 history w8 C256 window4096 bf16", codec="bf16", bs=16,
+      hist=[768, 256, 512, 0, 0, 256, 0, 768],
+      clens=[256, 256, 8, 64, 256, 8, 200, 256], C=256, **MX4)
+    f("tp mixtral K4 prefill w2 s520 ragged window4096 bf16", b=2, s=520,
+      lens=[520, 256], **MX4)
     GM4 = dict(GM, K=4)
     r("tp gemma3 K4 local [4, 1024] window1024 wrapped bf16", L=1024,
       window=1024, ends=[1223, 63, 1100, 300], **GM4)
@@ -3243,52 +3272,22 @@ def phase_train_cli():
 # Phase 13: MoE and prefix embeddings at full width
 # ---------------------------------------------------------------------------
 
-MX_ARCH, MX_UNITS, MX_SEED = "mixtral-8x7b", 16, SEED + 13
+# (a) runs 8 of mixtral-8x7b's 32 layers, cut for the script's time limit
+# (PERF.md lists the cuts with the seconds they saved)
+MX_ARCH, MX_UNITS, MX_SEED = "mixtral-8x7b", 8, SEED + 13
 SC_ARCH, SC_UNITS, SC_SEED = "llama4-scout-17b-a16e", 2, SEED + 14
 SC_PROMPTS, SC_NEW = (64, 200, 384, 512), 32
 VL_ARCH, VL_SEED, VL_TEXT, VL_DECODES = "internvl2-26b", SEED + 15, 200, 32
 
 
-@contextlib.contextmanager
-def routing(hook):
-    """moe.route replaced by hook(route, params, cfg, h) for the duration
-    (the MoE layers call it through the module)."""
-    route = MOE.route
-    MOE.route = lambda params, cfg, h: hook(route, params, cfg, h)
-    try:
-        yield
-    finally:
-        MOE.route = route
-
-
-def kept_choices(dispatch, gate_idx):
-    """[b, s, k] bool: each token's choices that found a capacity slot."""
-    return dispatch.sum(-1).gather(-1, gate_idx) > 0
-
-
-def forced_route(params, cfg, h, experts, kept):
-    """moe.route's outputs for h [b, s, d] with each token's experts and
-    kept choices [b, s, k] given: the gates come from this path's own
-    router, renormalised over the given experts as moe.route does, and
-    every kept choice has a slot of its own (capacity decides nothing)."""
-    b, s, _ = h.shape
-    E, k = cfg.n_experts, experts.shape[-1]
-    logits = torch.matmul(h.float(), params["router"].float())
-    probs = torch.softmax(logits, dim=-1)
-    gates = probs.gather(-1, experts)
-    gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
-    sel = torch.nn.functional.one_hot(experts, E) * kept[..., None]
-    flat = sel.reshape(b, s * k, E)                       # [b, s*k, E]
-    slot = (torch.cumsum(flat, dim=1) - flat).reshape(b, s, k, E)
-    C = max(1, int(flat.sum(dim=1).max()))
-    dispatch = torch.zeros((b, s, E, C), dtype=h.dtype, device=h.device)
-    combine = torch.zeros((b, s, E, C), dtype=torch.float32, device=h.device)
-    for j in range(k):
-        oh = (torch.nn.functional.one_hot(slot[:, :, j].clamp(max=C - 1), C)
-              * sel[:, :, j, :, None]).to(h.dtype)        # [b, s, E, C]
-        dispatch = dispatch + oh
-        combine = combine + oh.float() * gates[..., j, None, None]
-    return dispatch, combine, experts, logits, probs
+# moe.route replaced by hook(route, params, cfg, h) for the duration
+# (routing); each token's choices that found a capacity slot
+# (kept_choices); route's outputs with each token's experts and kept
+# choices given (forced_route): the port's own, which the serve CLI's
+# --replay-routes uses too
+routing = MOE.routing
+kept_choices = MOE.kept_choices
+forced_route = MOE.forced_route
 
 
 def greedy_routes_hook(cfg, p, routes, force=False):
@@ -3758,14 +3757,16 @@ def rank_mesh(shape, r):
     return LM.Mesh(axis_names=axes, shape=dict(shape), coords=c, rank=r)
 
 
-def rank_elements(cfg, shape):
-    """Each rank's parameter elements under the spec tree on `shape`."""
+def rank_elements(cfg, shape, strategy=None):
+    """Each rank's parameter elements under the spec tree on `shape`
+    (under `strategy`; by default the trainer's, pipelined over a pipe
+    axis)."""
     out = []
     abstract = init_params(None, cfg, device="meta")
+    strategy = strategy or SHD.Strategy(pipeline=shape.get("pipe", 1) > 1)
     for r in range(int(np.prod(list(shape.values())))):
         mesh = rank_mesh(shape, r)
-        specs = SHD.param_specs(cfg, abstract, SHD.Strategy(
-            pipeline=shape.get("pipe", 1) > 1), mesh)
+        specs = SHD.param_specs(cfg, abstract, strategy, mesh)
         out.append(sum(int(np.prod(SHD.local_shape(t.shape, s, mesh)))
                        for t, s in zip(tree_leaves(abstract),
                                        tree_leaves(specs))))
@@ -4400,22 +4401,38 @@ TP_CUDA = ["--arch", "mistral-nemo-12b", "--kv", "paged", "--compact",
            "--depth", str(TP_CUT), "--requests", "2", "--prompt-lens",
            "64,256", "--gen-lens", "16", "--seed", str(SEED + 19),
            "--max-slots", "8"]
+# (f): mixtral-8x7b at full width and 8 of its 32 layers on model:2, paged
+# as (a), under the expert parallelism its plan resolves (8 experts tile the
+# axis: 4 a rank); the ranks write their MoE routes for the replay
+TP_MOE_DEPTH = 8
+TP_MOE = ["--arch", "mixtral-8x7b", "--depth", str(TP_MOE_DEPTH), "--kv",
+          "paged", "--compact", "--chunk-prefill", "256", "--kv-block", "16",
+          "--audit", "strict", *TP_TRACE]
 # (tag, argv, model ranks, whether one rank replays the ranks' tokens; (c)'s
-# ranks are held to each other only)
+# ranks are held to each other only). (g) is no CLI run: tp_experts_rank
 TP_STEPS = (("a", TP_PAGED + ["--depth", str(TP_CUT)], 2, True),
             ("b", TP_PAGED + ["--kv-quant", "int8", "--kv-retain", "2"], 2,
              True),
             ("c", TP_CUDA, 2, False),
             ("d", TP_DEEP4, 4, True),
-            ("e", TP_RING, 2, True))
-# the steps whose ranks share the card at once. A rank of mistral-nemo-12b
-# at 40 layers peaks near 30 GB while it draws its shards (a whole stacked
-# leaf, then its cut), so (b) runs alone; (d) (8 layers, 4 ranks) and (e)
-# (12 layers, 2 ranks) together peak near 35 GB. (a) and (c) at 10 layers
-# (under 5 GB a rank) share a wave of their own, four processes: beside
-# (d) and (e) (eight), a rank of (d) met "Connection closed by peer" in a
-# collective
-TP_WAVES = (("a", "c"), ("b",), ("d", "e"))
+            ("e", TP_RING, 2, True),
+            ("f", TP_MOE, 2, True))
+# (g): mixtral-8x7b at 2 layers on model:2 under tensor parallelism inside
+# the experts (each rank its [gate_r | val_r] columns of all 8 experts):
+# one request, a 300-token prompt (chunks of 256 and 44) and 6 tokens (5
+# decode steps), through the paged engine that rank functions build
+TP_EXPERTS_DEPTH = 2
+TP_EXPERTS_SEED = SEED + 20
+TP_EXPERTS_TRACE = dict(prompt_lens=(300,), gen_lens=(6,))
+# the steps whose ranks share the card at once. A rank draws its shards
+# slice by slice (sharding.init_local_params), so it peaks near its shards:
+# mistral-nemo-12b at 40 layers 12.2 GB of bf16 a rank, mixtral-8x7b at 8
+# layers 11.9 GB, and (b) and (f) share a wave, four processes; (d) (8
+# layers, 4 ranks) and (e) (12 layers, 2 ranks) together peak near 35 GB.
+# (a) and (c) at 10 layers (under 5 GB a rank) share a wave with (g) (2
+# layers, under 4 GB a rank), six processes: beside (d) and (e) (eight), a
+# rank of (d) met "Connection closed by peer" in a collective
+TP_WAVES = (("a", "c", "g"), ("b", "f"), ("d", "e"))
 # per-device planning budgets (GiB): the ranks' plans fit the card together
 TP_BUDGET_GB = {1: 60, 2: 30, 4: 16}
 TP_TIMEOUT = 400
@@ -4458,10 +4475,11 @@ def _served(tag, out):
     return dig.group(1), pool.group(1), int(done.group(1))
 
 
-def replay_one(tag, argv, tokens_out, replay):
+def replay_one(tag, argv, tokens_out, replay, extra=()):
     """The serve CLI on one rank, in process, replaying the tokens of
     another run's --tokens-out file (`replay`) and writing its own logits
-    at each (`tokens_out`): its digest, pool, schedule digest and wall."""
+    at each (`tokens_out`), `extra` arguments after them: its digest,
+    pool, schedule digest and wall."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     buf = io.StringIO()
@@ -4470,7 +4488,7 @@ def replay_one(tag, argv, tokens_out, replay):
         with contextlib.redirect_stdout(buf):
             rc = SV.main(argv + ["--tokens-out", tokens_out, "--replay",
                                  replay, "--device", "cuda", "--hbm-budget-gb",
-                                 str(TP_BUDGET_GB[1])])
+                                 str(TP_BUDGET_GB[1]), *extra])
     except Exception as e:              # noqa: BLE001 — logged, then failed
         rc = f"{type(e).__name__}: {e}"
     torch.cuda.synchronize()
@@ -4488,15 +4506,21 @@ def replay_one(tag, argv, tokens_out, replay):
             "tokens": tokens_out}
 
 
+def routes_file(tmp, tag, side):
+    return os.path.join(tmp, f"{tag}_{side}_routes.pt")
+
+
 def start_ranks(tag, argv, world, tokens_out, tmp):
     """The serve CLI on `world` model ranks sharing the card over gloo,
     started in a subprocess leading a process group of its own (it spawns
     its ranks; stop_ranks kills the group), its tokens and the logits at
-    each written to `tokens_out`."""
+    each written to `tokens_out`, a MoE arch's routes too."""
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", *argv,
            "--device", "cuda", "--model-parallel", str(world),
            "--dist-backend", "gloo", "--hbm-budget-gb",
            str(TP_BUDGET_GB[world]), "--tokens-out", tokens_out]
+    if tp_cfg(argv).is_moe:
+        cmd += ["--routes-out", routes_file(tmp, tag, "ranks")]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = open(os.path.join(tmp, f"{tag}.out"), "w+")
     err = open(os.path.join(tmp, f"{tag}.err"), "w+")
@@ -4575,6 +4599,10 @@ def read_ranks(tag, st, wall):
             staged=int(staged), kinds=kinds, schedule=sched, digest=dig))
     plans = re.findall(r"^rank (\d+) plan: (.*)$", text, re.M)
     planning = re.findall(r"^rank (\d+) planning step (.*)$", text, re.M)
+    drawn = dict(re.findall(r"^rank (\d+) params drawn: "
+                            r"max_memory_allocated ([0-9.]+) GB", text, re.M))
+    for r in ranks:
+        r["draw_peak"] = float(drawn.get(str(r["rank"]), "nan")) * 1e9
     if len(ranks) != world or len(plans) != world:
         fail(f"phase 16({tag}): {len(ranks)} rank lines, {len(plans)} plan "
              f"lines for {world} ranks")
@@ -4583,7 +4611,7 @@ def read_ranks(tag, st, wall):
             "planning": planning, "tokens": st["tokens"]}
 
 
-def judge_logits(tag, run, one):
+def judge_logits(tag, run, one, judged=True):
     """The ranks' served logits against one rank's at every token the ranks
     emitted: one rank replayed the ranks' tokens, so each token's row on
     both sides follows the same tokens. Each side's row is the top 8 logits
@@ -4593,15 +4621,18 @@ def judge_logits(tag, run, one):
     the ids both hold differ by more than TP_DRIFT_BOUND of one rank's
     spread. Where one rank's argmax is another token (trap T2: the ranks'
     own run parts there from one rank's), both gaps between the two tokens
-    are logged. Returns (tokens compared, tokens where the argmaxes differ,
-    the largest difference over the spread, the rms of them all)."""
+    are logged. With `judged` False nothing fails and nothing is logged:
+    a token without a common top 8 is counted with those over the bound.
+    Returns (tokens compared, tokens where the argmaxes differ, the
+    largest difference over the spread, the rms of them all, tokens past
+    the bound or without a common top 8)."""
     with open(run["tokens"]) as f:
         mine = json.load(f)
     with open(one["tokens"]) as f:
         theirs = json.load(f)
     if mine["tokens"] != theirs["tokens"]:
         fail(f"phase 16({tag}): one rank did not replay the ranks' tokens")
-    n, parted, worst, sq, m = 0, 0, 0.0, 0.0, 0
+    n, parted, worst, sq, m, over = 0, 0, 0.0, 0.0, 0, 0
     for rid in sorted(mine["tokens"], key=int):
         toks = mine["tokens"][rid]
         for k, tok in enumerate(toks):
@@ -4612,6 +4643,10 @@ def judge_logits(tag, run, one):
             ta, tb = dict(zip(a[0], a[1])), dict(zip(b[0], b[1]))
             std, best = b[2], b[0][0]
             if tok not in ta or tok not in tb or best not in ta:
+                if not judged:
+                    over += 1
+                    n += 1
+                    continue
                 fail(f"phase 16({tag}): request {rid} token {k}: the ranks "
                      f"emit {tok}, one rank's argmax is {best}, and one "
                      "side's top 8 lacks the other's token: not a near-tie")
@@ -4620,19 +4655,21 @@ def judge_logits(tag, run, one):
             worst = max(worst, drift)
             sq += sum(r * r for r in rel)
             m += len(rel)
+            over += drift > TP_DRIFT_BOUND
             if best != tok:
                 parted += 1
+            if best != tok and judged:
                 log(f"[16{tag}] request {rid} token {k}: the ranks' argmax "
                     f"{tok} is {(ta[tok] - ta[best]) / a[2]:.4f} of their "
                     f"spread above {best}; one rank's {best} "
                     f"{(tb[best] - tb[tok]) / std:.4f} of its spread above "
                     f"{tok} (a near-tie)")
-            if drift > TP_DRIFT_BOUND:
+            if drift > TP_DRIFT_BOUND and judged:
                 fail(f"phase 16({tag}): request {rid} token {k}: the ranks' "
                      f"top logits {drift:.4f} of the spread from one rank's "
                      f"(bound {TP_DRIFT_BOUND}): not a rounding drift")
             n += 1
-    return n, parted, worst, (sq / m) ** 0.5
+    return n, parted, worst, (sq / max(m, 1)) ** 0.5, over
 
 
 def judge_tp(tag, argv, world, run, one):
@@ -4648,7 +4685,9 @@ def judge_tp(tag, argv, world, run, one):
     cfg = tp_cfg(argv)
     n_attn = n_attention(cfg)
     paged = "paged" in argv
-    elements = rank_elements(cfg, {"data": 1, "model": world})
+    mesh_shape = {"data": 1, "model": world}
+    elements = rank_elements(cfg, mesh_shape,
+                             SHD.default_strategy(cfg, mesh_shape))
     if one is not None:
         if (run["pool"], run["done"]) != (one["pool"], one["done"]):
             fail(f"phase 16({tag}): {world} ranks ran pool {run['pool']} "
@@ -4659,7 +4698,7 @@ def judge_tp(tag, argv, world, run, one):
                  "their steps other block tables than one rank (schedule "
                  f"{run['ranks'][0]['schedule'][:16]}, one rank "
                  f"{one['schedule'][:16]})")
-        compared, parted, worst, rms = judge_logits(tag, run, one)
+        compared, parted, worst, rms, _ = judge_logits(tag, run, one)
     if len(set(run["plans"])) != 1:
         fail(f"phase 16({tag}): the ranks planned apart: {run['plans']}")
     total = {k: 0 for k in ("paged_decode", "paged_prefill",
@@ -4684,7 +4723,8 @@ def judge_tp(tag, argv, world, run, one):
             f"{r['pool']} B against the predictor's {r['pool_pred']} B; "
             f"max_memory_allocated {r['peak'] / 1e9:.3f} GB against the "
             f"plan's {r['pred'] / 1e9:.3f} GB (measured / predicted "
-            f"{r['ratio']}); launches {r['launches']} (predicted {want}: "
+            f"{r['ratio']}); {r['draw_peak'] / 1e9:.3f} GB while drawing "
+            f"its shards; launches {r['launches']} (predicted {want}: "
             f"{n_attn} layers x {r['decodes']} decode ticks, "
             f"{r['chunks']} chunk calls, {r['prefill_calls']} prefill "
             f"calls); staged through the host {r['staged']} B "
@@ -4726,42 +4766,288 @@ def judge_tp(tag, argv, world, run, one):
     return total
 
 
-def phase_tp():
+def route_partings(tag, mine, theirs):
+    """(routed tokens, tokens whose experts or kept choices differ) of two
+    MoE route tapes of one schedule, call by call (layer x group rows x
+    positions)."""
+    if len(mine) != len(theirs):
+        fail(f"phase 16({tag}): {len(mine)} MoE routing calls against "
+             f"{len(theirs)}")
+    n = parted = 0
+    for (e, k), (e2, k2) in zip(mine, theirs):
+        if e.shape != e2.shape:
+            fail(f"phase 16({tag}): a routing call of {tuple(e.shape)} "
+                 f"against {tuple(e2.shape)}: another schedule")
+        diff = ((e != e2) | (k != k2)).any(-1)
+        n += diff.numel()
+        parted += int(diff.sum())
+    return n, parted
+
+
+def judge_routes(tag, cfg, own, ranks):
+    """The ranks' routes against the capacity rule of one device: each
+    group's kept choices exactly those that the global expert count's
+    capacity C keeps of its experts (moe.capacity_slots, C computed here
+    from cfg.n_experts), inert lanes and pad rows included. And, counted
+    but not judged, where the one rank's own router, on the replay that
+    took the ranks' routes, would have chosen otherwise (router near-ties,
+    its input apart from the ranks' by rounding). Returns the log text."""
+    n = broken = 0
+    for e, kept in ranks:
+        s = e.shape[1]
+        C = max(1, int(-(-s * cfg.top_k * cfg.capacity_factor
+                         // cfg.n_experts)))
+        want = torch.stack([keep.any(-1) for _, keep in
+                            MOE.capacity_slots(e, cfg.n_experts, C)], -1)
+        n += e.shape[0] * s
+        broken += int((want != kept).any(-1).sum())
+    if broken:
+        fail(f"phase 16({tag}): the ranks kept other choices than the "
+             f"capacity of {cfg.n_experts} experts keeps at {broken} of {n} "
+             "routed tokens")
+    m, parted = route_partings(tag, own, ranks)
+    return (f"the ranks' kept choices are the global capacity rule's at "
+            f"all {n} routed tokens; the one rank's own router, on the "
+            f"replay that took their routes, would have chosen other "
+            f"experts or kept other choices at {parted} of {m} "
+            f"({parted / max(m, 1):.5f}: router near-ties; counted, not "
+            f"judged)")
+
+
+def free_replay(tag, argv, run, tmp):
+    """(f)'s one rank replaying the ranks' tokens with its own MoE routes:
+    its route partings from the ranks' and its logit drift, counted and
+    logged, not judged."""
+    one = replay_one(tag + " free", argv, os.path.join(tmp, f"{tag}_free.json"),
+                     run["tokens"], extra=["--routes-out",
+                                           routes_file(tmp, tag, "free")])
+    n, parted = route_partings(tag, torch.load(routes_file(tmp, tag, "free")),
+                               torch.load(routes_file(tmp, tag, "ranks")))
+    compared, argmax, worst, rms, over = judge_logits(tag, run, one,
+                                                      judged=False)
+    log(f"[16{tag}] a free replay (the ranks' tokens, its own MoE routes; "
+        f"counted, not judged): routes apart at {parted} of {n} routed "
+        f"tokens; argmaxes apart at {argmax} of {compared} tokens, {over} "
+        f"tokens past {TP_DRIFT_BOUND} of the spread or without a common "
+        f"top 8, the largest {worst:.4f}, rms {rms:.4f}; {one['wall']:.2f}s")
+
+
+def experts_cfg():
+    return depth_variant(get_config(MX_ARCH), TP_EXPERTS_DEPTH)
+
+
+def serve_experts(cfg, params, device, mesh=None, replay=None, forced=None):
+    """(g)'s request through the compacted chunked paged engine (chunk
+    256, blocks of 16), every MoE routing call on a RouteTape; with
+    `replay` (a token file) and `forced` (a route tape) it emits those
+    tokens and takes those routes. Its tokens and top logits (the serve
+    CLI's --tokens-out records), route tape, launches and calls."""
+    trace = synthetic_trace(1, vocab_size=cfg.vocab_size,
+                            seed=TP_EXPERTS_SEED, mean_interarrival=0.0,
+                            **TP_EXPERTS_TRACE)
+    context = trace_context(trace)
+    n_blocks = -(-context // KV_BLOCK) + 2
+    tlog = TokenLog(force=SV.replay_force(trace, replay) if replay else None)
+    ex = PagedTorchExecutor(params, cfg, n_lanes=1, n_blocks=n_blocks,
+                            kv_block=KV_BLOCK, context=context, compact=True,
+                            chunk=CHUNK, device=device, mesh=mesh, log=tlog)
+    eng = Engine(ex, 1, allocator=BlockAllocator(n_blocks, KV_BLOCK),
+                 chunk_prefill=CHUNK, audit="strict")
+    tape = MOE.RouteTape(forced)
+    _zero_launches()
+    with MOE.routing(tape):
+        rep = eng.run(trace)
+    torch.cuda.synchronize(device)
+    tokens, records = SV.token_records(trace, [rep], tlog)
+    return {"tokens": tokens, "logits": records, "routes": tape.calls,
+            "launches": launch_counts(), "decodes": ex.decodes,
+            "chunks": ex.chunk_calls,
+            "prefills": sum(ex.shape_calls["prefill"].values()),
+            "done": len(rep.completions), "schedule": ex.schedule_digest}
+
+
+def tp_experts_rank(device):
+    """One rank of (g), spawned by launch.mesh.spawn_ranks: mixtral-8x7b's
+    shards under Strategy(ep=False) (tensor parallelism inside the
+    experts) on {data: 1, model: 2}, drawn from TP_EXPERTS_SEED as one
+    device draws them, then serve_experts; with its shard shapes, peaks
+    (while drawing, while serving) and staged bytes."""
+    mesh = LM.build_mesh({"data": 1, "model": 2})
+    cfg = experts_cfg()
+    specs = SHD.param_specs(cfg, init_params(None, cfg, device="meta"),
+                            SHD.Strategy(ep=False), mesh)
+    t0 = time.time()
+    params = SHD.init_local_params(
+        torch.Generator(device=device).manual_seed(TP_EXPERTS_SEED), cfg,
+        device, specs, mesh)
+    torch.cuda.synchronize(device)
+    draw = torch.cuda.max_memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t1 = time.time()
+    out = serve_experts(cfg, params, device, mesh)
+    out.update(rank=mesh.rank, draw_peak=draw,
+               peak=torch.cuda.max_memory_allocated(device),
+               wi=tuple(params["units"][0]["mlp"]["wi"].shape),
+               elements=sum(t.numel() for t in tree_leaves(params)),
+               staged=dict(COMM.staged_by_kind), draw_s=t1 - t0,
+               serve_s=time.time() - t1)
+    return out
+
+
+def spawn_experts():
+    """(g)'s two ranks on the card over gloo: (their results, wall)."""
+    t0 = time.time()
+    res = LM.spawn_ranks(tp_experts_rank, 2, "gloo", "cuda",
+                         timeout=TP_TIMEOUT)
+    return res, time.time() - t0
+
+
+def judge_experts(ranks, wall, tmp):
+    """(g): both ranks the same tokens, routes and schedule, each rank's
+    wi its columns of every expert and its elements the spec tree's
+    shard, its attention kernels launched once a layer and call; one rank
+    (the whole params from the same seed, in process) replaying the
+    ranks' tokens and routes within TP_DRIFT_BOUND of their logits; the
+    ranks' kept choices the global capacity rule's (judge_routes). Returns
+    the ranks' launches summed."""
+    cfg = experts_cfg()
+    n_attn = n_attention(cfg)
+    shape = {"data": 1, "model": 2}
+    elements = rank_elements(cfg, shape, SHD.Strategy(ep=False))
+    r0 = ranks[0]
+    total = {k: 0 for k in r0["launches"]}
+    for r in ranks:
+        want = dict({k: 0 for k in r["launches"]},
+                    paged_decode=n_attn * r["decodes"],
+                    paged_prefill=n_attn * r["chunks"],
+                    flash_attention=n_attn * r["prefills"])
+        log(f"[16g] rank {r['rank']} of 2: {r['elements']:,} parameter "
+            f"elements (spec tree {elements[r['rank']]:,}), wi {r['wi']}; "
+            f"max_memory_allocated {r['draw_peak'] / 1e9:.3f} GB while "
+            f"drawing its shards ({r['draw_s']:.2f}s), {r['peak'] / 1e9:.3f}"
+            f" GB while serving ({r['serve_s']:.2f}s); launches "
+            f"{r['launches']} (predicted {want}: {n_attn} layers x "
+            f"{r['decodes']} decode ticks, {r['chunks']} chunk calls, "
+            f"{r['prefills']} prefill calls); staged through the host "
+            f"{r['staged']} B ({nvidia_smi_line()})")
+        if r["wi"] != (TP_EXPERTS_DEPTH, cfg.n_experts, cfg.d_model,
+                       cfg.d_ff):
+            fail(f"phase 16(g): rank {r['rank']}'s wi {r['wi']} is not its "
+                 "[gate_r | val_r] columns of every expert")
+        if r["elements"] != elements[r["rank"]]:
+            fail(f"phase 16(g): rank {r['rank']} holds {r['elements']} "
+                 f"parameter elements, spec tree {elements[r['rank']]}")
+        if r["launches"] != want or not r["decodes"] or r["done"] != 1:
+            fail(f"phase 16(g): rank {r['rank']} launched {r['launches']}, "
+                 f"predicted {want}, completed {r['done']}")
+        if (r["tokens"], r["schedule"]) != (r0["tokens"], r0["schedule"]):
+            fail("phase 16(g): the ranks emit or schedule apart")
+        if route_partings("g", r["routes"], r0["routes"])[1]:
+            fail("phase 16(g): the ranks route apart")
+        for k in total:
+            total[k] += r["launches"][k]
+    mine = os.path.join(tmp, "g_ranks.json")
+    with open(mine, "w") as f:
+        json.dump({"tokens": r0["tokens"], "logits": r0["logits"]}, f)
+    t0 = time.time()
+    cfg = experts_cfg()
+    params = init_params(torch.Generator(device=DEV).manual_seed(
+        TP_EXPERTS_SEED), cfg, device=DEV)
+    one = serve_experts(cfg, params, DEV, replay=mine, forced=r0["routes"])
+    del params
+    torch.cuda.empty_cache()
+    theirs = os.path.join(tmp, "g_one.json")
+    with open(theirs, "w") as f:
+        json.dump({"tokens": one["tokens"], "logits": one["logits"]}, f)
+    if one["schedule"] != r0["schedule"]:
+        fail("phase 16(g): one rank scheduled other block tables")
+    compared, parted, worst, rms, _ = judge_logits(
+        "g", {"tokens": mine}, {"tokens": theirs})
+    own = judge_routes("g", cfg, one["routes"], r0["routes"])
+    log(f"[16g] 2 ranks, tensor parallelism inside the experts: one rank, "
+        f"replaying the ranks' tokens and routes, puts its argmax on the "
+        f"ranks' token at {compared - parted} of {compared} tokens; the top "
+        f"logits at most {worst:.4f} of the spread apart (bound "
+        f"{TP_DRIFT_BOUND}), rms {rms:.4f}; {own}; walls {wall:.2f}s (2 "
+        f"ranks with start-up, beside the other runs of its wave) and "
+        f"{time.time() - t0:.2f}s (one rank)")
+    return total
+
+
+def phase_tp(only=None):
     """Phase 16: the serve CLI on model:2 and model:4, ranks sharing the
-    card over gloo, the runs of a wave (TP_WAVES) at once; then one rank of
-    the same CLI and trace, in process, replays each run's tokens, and the
-    two are held to each other token by token (judge_tp)."""
+    card over gloo, the runs of a wave (TP_WAVES) at once, (g)'s rank
+    functions beside them in a thread; then one rank of the same CLI and
+    trace, in process, replays each run's tokens (a MoE arch's routes
+    too), and the two are held to each other token by token (judge_tp,
+    judge_experts). `only` limits the runs (a set of tags)."""
     steps = {tag: (argv, world, replay)
-             for tag, argv, world, replay in TP_STEPS}
+             for tag, argv, world, replay in TP_STEPS
+             if only is None or tag in only}
     walls, runs, totals = {}, {}, {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    experts = None
+    pool = ThreadPoolExecutor(1)
     try:
         for wave in TP_WAVES:
+            wave = tuple(t for t in wave if t in steps
+                         or (t == "g" and (only is None or t in only)))
+            if not wave:
+                continue
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             t0 = time.time()
             started = {}
             try:
+                if "g" in wave:
+                    experts = pool.submit(spawn_experts)
                 for tag in wave:
+                    if tag == "g":
+                        continue
                     argv, world, _ = steps[tag]
                     started[tag] = start_ranks(
                         tag, argv, world,
                         os.path.join(tmp, f"{tag}_ranks.json"), tmp)
                 ends = wait_ranks(started)
+                if "g" in wave:
+                    try:
+                        experts = experts.result()
+                    except (RuntimeError, TimeoutError) as e:
+                        fail(f"phase 16(g): its ranks failed: {e}")
             finally:
                 stop_ranks(started)
-            for tag in wave:
+            for tag in started:
                 runs[tag] = read_ranks(tag, started[tag], ends[tag])
                 walls[tag] = ends[tag]
             if len(wave) > 1:
                 walls["wave " + "".join(wave)] = time.time() - t0
         for tag, (argv, world, replay) in steps.items():
             t0 = time.time()
+            extra = []
+            if tp_cfg(argv).is_moe:
+                extra = ["--replay-routes", routes_file(tmp, tag, "ranks"),
+                         "--routes-out", routes_file(tmp, tag, "one")]
             one = (replay_one(tag, argv, os.path.join(tmp, f"{tag}_one.json"),
-                              runs[tag]["tokens"]) if replay else None)
+                              runs[tag]["tokens"], extra) if replay else None)
             totals[tag] = judge_tp(tag, argv, world, runs[tag], one)
-            walls[tag + " one rank"] = time.time() - t0
+            if extra:
+                log(f"[16{tag}] " + judge_routes(
+                    tag, tp_cfg(argv),
+                    torch.load(routes_file(tmp, tag, "one")),
+                    torch.load(routes_file(tmp, tag, "ranks"))))
+                walls[tag + " one rank"] = time.time() - t0
+                t0 = time.time()
+                free_replay(tag, argv, runs[tag], tmp)
+                walls[tag + " free replay"] = time.time() - t0
+            else:
+                walls[tag + " one rank"] = time.time() - t0
+        if experts is not None:
+            t0 = time.time()
+            totals["g"] = judge_experts(*experts, tmp)
+            walls["g"] = experts[1]
+            walls["g one rank"] = time.time() - t0
     finally:
+        pool.shutdown(wait=True)
         shutil.rmtree(tmp, ignore_errors=True)
     log("[16] walls " + ", ".join(f"({k}) {v:.2f}s"
                                   for k, v in walls.items()))
@@ -4790,6 +5076,9 @@ def main():
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (1 always runs)")
+    ap.add_argument("--tp-runs", default="",
+                    help="comma-separated tags of phase 16's runs to make "
+                         "(default every run)")
     ap.add_argument("--par-runs", default="",
                     help="comma-separated tags of phase 14's runs to make "
                          "(default every run, the restores and "
@@ -4867,7 +5156,8 @@ def main():
     if 16 in phases:
         torch.cuda.empty_cache()
         t0 = time.time()
-        p16 = phase_tp()
+        p16 = phase_tp({t.strip() for t in args.tp_runs.split(",")}
+                       if args.tp_runs else None)
         log(f"[16] phase 16 {time.time() - t0:.2f}s")
     if g3 is not None:
         rows.append(ring_row(g3, rg, errs["decode_attention"]))
@@ -4878,11 +5168,11 @@ def main():
         # before its path and read just after (phase 14: every rank of its
         # meshes (a)-(c), over its training loop; phase 15: the steps the
         # dry-run and the hillclimb measured on the card; phase 16: every
-        # rank of its runs (a)-(e) on a model axis), added to their
+        # rank of its runs (a)-(g) on a model axis), added to their
         # kernels' rows
         a, b, c = p13["a"], p13["b"], p13["c"]
         for tag, codec in (("a", "bf16"), ("b", "int8"), ("c", "bf16"),
-                           ("d", "bf16")):
+                           ("d", "bf16"), ("f", "bf16"), ("g", "bf16")):
             t = p16[tag]
             add_launches(rows, f"paged_decode[{codec}]", "16" + tag,
                          t["paged_decode"])

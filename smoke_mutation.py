@@ -8,11 +8,11 @@ output (ops.decode_attention_fwd, B3) scaled by a factor, patched at run
 time. Phase 2 holds the kernel itself at the bf16 tolerance; this shows
 how large an error the end-to-end checks see on their own.
 
-Phases 14 and 15 plant each fault in a copy of this checkout's sources
+Phases 14 to 16 plant each fault in a copy of this checkout's sources
 (in a temporary directory), where `chip_smoke.py --phases 1,14` (or
-`1,15`) then runs, phase 14 limited to the runs that should catch the
-fault (`--par-runs`). Phase 14 (the trainer runs in processes of its
-own): the data axes' gradient mean left out of `sync_grads`, and
+`1,15`, `1,16`) then runs, phases 14 and 16 limited to the runs that
+should catch the fault (`--par-runs`, `--tp-runs`). Phase 14 (the
+trainer runs in processes of its own): the data axes' gradient mean left out of `sync_grads`, and
 gathered shards concatenated in reverse rank order, each for 14(b)
 (data:2); the tensor-parallel entry op's backward without its all-reduce
 (each rank's share of the input's gradient taken for the whole), and
@@ -25,12 +25,17 @@ a GLU `wi` cut contiguously (rank 0 holds the whole gate, rank 1 the
 whole val), caught at 16(a) by the ranks' served logits against one
 rank's replay of their tokens; and the attention mass left per rank, not
 summed over the model axis (the ranks rank blocks for retention each by
-its own heads), caught at 16(b) by the ranks' block-table schedules.
+its own heads), caught at 16(b) by the ranks' block-table schedules;
+mixtral-8x7b's MoE capacity C computed from the rank's own 4 experts
+instead of all 8, caught at 16(f) where the ranks keep choices that the
+capacity of all 8 experts drops; and the experts' partial y left
+unsummed over the model axis, caught at 16(f) by the ranks emitting
+apart.
 
     python3 smoke_mutation.py              # 13(b) at x0.9 and x0.97, 13(a) at x0.9
     python3 smoke_mutation.py --phase 14   # the four parallel-layer faults
     python3 smoke_mutation.py --phase 15   # the two dry-run faults
-    python3 smoke_mutation.py --phase 16   # the two model-axis faults
+    python3 smoke_mutation.py --phase 16   # the four model-axis faults
 
 Prints, for each case, whether the phase failed (caught) or passed.
 Needs a CUDA device.
@@ -79,13 +84,22 @@ FAULTS_16 = (
      "src/repro_torch/parallel/sharding.py",
      "    if not glu or last is None or last.stop - last.start == "
      "x.shape[-1]:\n",
-     "    if True:\n"),
+     "    if True:\n", "a"),
     ("the attention mass not summed over the model axis",
      "src/repro_torch/serving/executor.py",
      "        if self.group is not None:\n"
      "            mass = comm.all_reduce(",
      "        if False:\n"
-     "            mass = comm.all_reduce("),
+     "            mass = comm.all_reduce(", "b"),
+    ("the MoE capacity from the rank's own experts (E / M)",
+     "src/repro_torch/models/moe.py",
+     "    C = max(1, int(-(-s * k * cfg.capacity_factor // E)))\n",
+     "    C = max(1, int(-(-s * k * cfg.capacity_factor\n"
+     "                     // (E // comm.model_size()))))\n", "f"),
+    ("the experts' partial y not summed over the model axis",
+     "src/repro_torch/models/moe.py",
+     "        y = comm.tp_sum(part, kind=\"tp_moe_sum\").to(h.dtype)\n",
+     "        y = part.to(h.dtype)\n", "f"),
 )
 FAULTS = {14: FAULTS_14, 15: FAULTS_15, 16: FAULTS_16}
 
@@ -109,7 +123,8 @@ def planted(phase):
                 f.write(text.replace(old, new))
             cmd = [sys.executable, "chip_smoke.py", "--phases", f"1,{phase}"]
             if runs:
-                cmd += ["--par-runs", runs[0]]
+                cmd += ["--par-runs" if phase == 14 else "--tp-runs",
+                        runs[0]]
             out = subprocess.run(cmd, cwd=tmp, capture_output=True,
                                  text=True)
             for line in out.stdout.splitlines():

@@ -26,10 +26,12 @@ Differences from the reference CLI:
     one card a rank, gloo to share one card or on the CPU). The mesh is
     {data: 1, model: M} and serving is tensor-parallel over "model"
     (explicit collectives, `parallel.comm`) where the reference runs GSPMD
-    under its axis rules; a plan with a data (or pipe) axis above 1, and
-    an arch the model axis does not cover, raise naming ROADMAP queue A
-    item 5 (`runtime.schedule.serving_mesh_problems`) before any rank
-    allocates its params;
+    under its axis rules, the params cut under the plan's strategy (a MoE
+    arch's experts by expert parallelism where the plan resolved EP, else
+    tensor parallelism inside them); a plan with a data (or pipe) axis
+    above 1, and an arch the model axis does not cover, raise naming
+    ROADMAP queue A item 5 (`runtime.schedule.serving_mesh_problems`)
+    before any rank allocates its params;
   * `--backend` is simulate or cuda, and `--forbid-plan-compiles` forbids
     a CudaMeasurer step during planning;
   * the executors are TorchExecutor (ring) and PagedTorchExecutor (paged),
@@ -62,6 +64,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -83,6 +86,7 @@ from repro_torch.kernels import paged_decode as PD
 from repro_torch.kernels import paged_prefill as PP
 from repro_torch.launch import mesh as LM
 from repro_torch.models import init_params
+from repro_torch.models import moe as MOE
 from repro_torch.models.model import require_device
 from repro_torch.parallel import comm
 from repro_torch.parallel import sharding as S
@@ -177,7 +181,7 @@ def _planning_peaks(cfg, measurer, mesh_shape):
 
 def _report_ranks(cfg, mesh, specs, params, executor, splan, shape, n_slots,
                   n_blocks, predicted, dev, digest, plan_line,
-                  planning) -> int:
+                  planning, draw_peak) -> int:
     """Rank 0 prints one line a rank: parameter elements against the spec
     tree's shard and the predictor's sharded_param_count, pool bytes
     against the predictor's, the peak against the plan's prediction, the
@@ -185,8 +189,10 @@ def _report_ranks(cfg, mesh, specs, params, executor, splan, shape, n_slots,
     staged through the host by kind, the digests of the block tables the
     engine gave the steps (the schedule: retention's drops included) and
     of the tokens; and, where the card measured planning steps, each
-    step's peak on the rank, over the ranks and in the simulator. Returns
-    1 when a rank's tokens, schedule or plan differ from rank 0's."""
+    step's peak on the rank, over the ranks and in the simulator; and the
+    rank's peak up to its params (planning and the draws, `draw_peak`).
+    Returns 1 when a rank's tokens, schedule or plan differ from rank
+    0's."""
     from repro_torch.tree import tree_leaves
     abstract = init_params(None, cfg, device="meta")
     want = sum(int(torch.Size(S.local_shape(t.shape, s, mesh)).numel())
@@ -207,7 +213,8 @@ def _report_ranks(cfg, mesh, specs, params, executor, splan, shape, n_slots,
                            prefill_calls=_prefill_calls(executor)),
                 staged=comm.staged_bytes, by_kind=dict(comm.staged_by_kind),
                 schedule=getattr(executor, "schedule_digest", "none"),
-                digest=digest, plan=plan_line, planning=planning)
+                digest=digest, plan=plan_line, planning=planning,
+                draw_peak=draw_peak)
     rows = [None] * dist.get_world_size()
     dist.all_gather_object(rows, mine)
     sharded = PR.sharded_param_count(cfg, splan.execution.mesh_shape)
@@ -231,6 +238,10 @@ def _report_ranks(cfg, mesh, specs, params, executor, splan, shape, n_slots,
               f"schedule digest {r['schedule']}; tokens digest "
               f"{r['digest']}")
         print(f"rank {r['rank']} plan: {r['plan']}")
+        if r["draw_peak"] is not None:
+            print(f"rank {r['rank']} params drawn: max_memory_allocated "
+                  f"{r['draw_peak'] / 1e9:.3f} GB (planning and the "
+                  f"draws)")
         for kind, seq, batch, own, red, sim in r["planning"]:
             print(f"rank {r['rank']} planning step {kind} seq {seq} batch "
                   f"{batch}: peak {own:.0f} B on this rank, {red:.0f} B "
@@ -450,6 +461,16 @@ def main(argv=None):
                          "trace): emit its tokens in place of the argmax, "
                          "so that with --tokens-out the two runs' logits "
                          "meet at every token")
+    ap.add_argument("--routes-out", default="",
+                    help="MoE archs: write every MoE routing call's chosen "
+                         "experts and kept choices, in call order, to this "
+                         "file (torch.save; rank 0)")
+    ap.add_argument("--replay-routes", default="",
+                    help="MoE archs: another run's --routes-out file (a "
+                         "run of the same schedule, e.g. under --replay of "
+                         "its tokens): every MoE routing call takes that "
+                         "call's experts and kept choices (its own are "
+                         "still the ones --routes-out writes)")
     ap.add_argument("--forbid-plan-compiles", action="store_true",
                     help="fail if planning runs a measured step on the card "
                          "(CI guard; incompatible with --backend cuda)")
@@ -646,16 +667,26 @@ def main(argv=None):
     specs = None
     if mesh is not None:
         # this rank's shards of the one-rank params: the same draws, each
-        # leaf cut as it is drawn
+        # leaf cut as it is drawn, under the plan's strategy (its EP mode
+        # as the planner resolved it)
         specs = S.param_specs(cfg, init_params(None, cfg, device="meta"),
-                              S.default_strategy(cfg, mesh), mesh)
+                              splan.execution.strategy(), mesh)
         params = S.init_local_params(gen, cfg, dev, specs, mesh)
     else:
         params = init_params(gen, cfg, device=dev)
     group = mesh.groups["model"] if mesh is not None else None
+    draw_peak = None
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+        # the peak since the process started: planning's and the draws'
+        draw_peak = torch.cuda.max_memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
+    tape = None
+    if args.routes_out or args.replay_routes:
+        if not cfg.is_moe:
+            ap.error("--routes-out/--replay-routes need a MoE arch")
+        tape = MOE.RouteTape(torch.load(args.replay_routes)
+                             if args.replay_routes else None)
     policies = (["continuous", "static"] if args.policy == "both"
                 else [args.policy])
     reports = []
@@ -712,7 +743,9 @@ def main(argv=None):
                         ladder=(LadderConfig() if chaos else None),
                         audit=args.audit)
         t0 = time.time()
-        report = engine.run(trace)
+        with (MOE.routing(tape) if tape is not None
+              else contextlib.nullcontext()):
+            report = engine.run(trace)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.time() - t0
@@ -777,12 +810,15 @@ def main(argv=None):
         tokens, records = token_records(trace, reports, log)
         with open(args.tokens_out, "w") as f:
             json.dump({"tokens": tokens, "logits": records}, f)
+    if args.routes_out and (mesh is None or mesh.rank == 0):
+        torch.save(tape.calls, args.routes_out)
     plan_line = f"{cls.category.value} -> {splan.describe()}"
     planning = (_planning_peaks(cfg, measurer, splan.execution.mesh_shape)
                 if isinstance(measurer, MM.CudaMeasurer) else [])
     if mesh is not None and _report_ranks(
             cfg, mesh, specs, params, executor, splan, shape, n_slots,
-            n_blocks, res + tra, dev, digest, plan_line, planning):
+            n_blocks, res + tra, dev, digest, plan_line, planning,
+            draw_peak):
         return 1
     if args.policy == "both" and len(reports) == 2:
         cont, stat = reports

@@ -15,14 +15,35 @@ on exact ties), renormalised gates, choice priority with per-expert counts
 shared across choices; a decode step (s == 1, b > 1) routes the whole batch
 as one group, inert lanes included, so their rows take expert capacity as
 well (recorded as fault F13).
+
+On a model axis (serving inside `parallel.comm.model_axis`) the layer
+finds its layout from its local shapes, as `layers._check_shard` does:
+under expert parallelism (EP) `wi`'s expert dim holds this rank's E / M
+whole experts (and the router its E / M columns); under tensor
+parallelism inside the experts `wi`'s last dim holds this rank's
+[gate_r | val_r] columns of every expert and `wo` the matching rows.
+Routing is replicated: every rank routes the whole group from the whole
+router (an EP rank gathers the router's columns first), so the dispatch
+masks, the capacity C (from the global expert count) and the aux losses
+are the same bits on every rank as on one device for the same input.
+Each rank then runs its experts' products (EP) or its columns of every
+expert (TP), combines them into an f32 partial y, and `comm.tp_sum`
+sums the partials over the axis before the one rounding to the
+activation dtype, as `layers.out_proj` does. The normed input enters the
+expert products through `comm.tp_enter`. The backward through routing on
+a model axis is not ported: training refuses MoE blocks there
+(runtime.schedule.check_training_mesh).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
+from repro_torch.parallel import comm
 
 def moe_init(gen, cfg: ModelConfig, device, repeats: int = 0):
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
@@ -63,6 +84,23 @@ def top_k_lower_index(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def router_logits(params, cfg: ModelConfig, h):
+    """The f32 router logits [b, s, E] of h (normed), from the whole
+    router: on a model axis whose ranks each hold E / M of its columns
+    (EP), the columns are gathered first, so every rank computes the same
+    bits as one device."""
+    w = params["router"]
+    m = comm.model_size()
+    if m > 1 and w.shape[-1] != cfg.n_experts:
+        if w.shape[-1] * m != cfg.n_experts:
+            raise ValueError(f"router: {w.shape[-1]} expert columns on a "
+                             f"model axis of {m}, the whole router has "
+                             f"{cfg.n_experts}")
+        w = comm.all_gather(w.contiguous(), comm.model_group(), dim=-1,
+                            kind="tp_router")
+    return torch.matmul(h.float(), w.float())
+
+
 def route(params, cfg: ModelConfig, h):
     """The router of one set of groups, h [b, s, d] (normed): (dispatch
     [b, s, E, C] in h's dtype, combine [b, s, E, C] f32, gate_idx [b, s, k],
@@ -70,31 +108,61 @@ def route(params, cfg: ModelConfig, h):
     b, s, _ = h.shape
     E, k = cfg.n_experts, cfg.top_k
     C = max(1, int(-(-s * k * cfg.capacity_factor // E)))
-    logits = torch.matmul(h.float(), params["router"].float())   # [b, s, E]
+    logits = router_logits(params, cfg, h)                        # [b, s, E]
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = top_k_lower_index(probs, k)             # [b, s, k]
     gate_vals = gate_vals / torch.clamp(
         gate_vals.sum(dim=-1, keepdim=True), min=1e-9)            # renormalize
 
-    # Capacity assignment with choice priority (Switch): earlier choices
-    # claim slots first; cumulative per-expert counts shared across choices.
     dispatch = torch.zeros((b, s, E, C), dtype=h.dtype, device=h.device)
     combine = torch.zeros((b, s, E, C), dtype=torch.float32, device=h.device)
-    counts = torch.zeros((b, E), dtype=torch.int32, device=h.device)
-    for choice in range(k):
-        e_onehot = F.one_hot(gate_idx[..., choice].long(), E).to(
-            torch.int32)                                           # [b, s, E]
-        pos = counts[:, None, :] + torch.cumsum(e_onehot, dim=1,
-                                                dtype=torch.int32) - e_onehot
-        keep = (pos < C) & (e_onehot > 0)
+    for choice, (pos, keep) in enumerate(capacity_slots(gate_idx, E, C)):
         pos_oh = F.one_hot(torch.where(keep, pos, C).long(), C + 1).to(
             h.dtype)[..., :C]                                      # [b, s, E, C]
         sel = pos_oh * keep[..., None].to(h.dtype)
         dispatch = dispatch + sel
         combine = combine + sel.float() * gate_vals[..., choice][..., None,
                                                                   None]
-        counts = counts + e_onehot.sum(dim=1, dtype=torch.int32)
     return dispatch, combine, gate_idx, logits, probs
+
+
+def capacity_slots(gate_idx, E: int, C: int):
+    """Capacity assignment with choice priority (Switch): earlier choices
+    claim slots first, the per-expert counts shared across choices. For
+    each of the k choices of gate_idx [b, s, k] (one group a row), (pos,
+    keep) [b, s, E]: each token's place in each expert's order over the
+    group, and whether the choice's expert is there with its place under
+    the capacity C."""
+    counts = torch.zeros((gate_idx.shape[0], E), dtype=torch.int32,
+                         device=gate_idx.device)
+    out = []
+    for choice in range(gate_idx.shape[-1]):
+        e_onehot = F.one_hot(gate_idx[..., choice].long(), E).to(
+            torch.int32)                                           # [b, s, E]
+        pos = counts[:, None, :] + torch.cumsum(e_onehot, dim=1,
+                                                dtype=torch.int32) - e_onehot
+        out.append((pos, (pos < C) & (e_onehot > 0)))
+        counts = counts + e_onehot.sum(dim=1, dtype=torch.int32)
+    return out
+
+
+def _layout(params, cfg: ModelConfig) -> str:
+    """How this rank holds the experts, read from the local shapes of `wi`
+    [E_local, d, mult * f_local]: "whole" (one device, or a model axis
+    that replicates them), "ep" (E / M whole experts) or "tp" (the
+    [gate_r | val_r] columns of every expert)."""
+    m = comm.model_size()
+    mult = 2 if layers.is_glu(cfg.activation) else 1
+    E, width = cfg.n_experts, mult * cfg.d_ff
+    e_loc, w_loc = params["wi"].shape[-3], params["wi"].shape[-1]
+    if (e_loc, w_loc) == (E, width):
+        return "whole"
+    if m > 1 and (e_loc * m, w_loc) == (E, width):
+        return "ep"
+    if m > 1 and (e_loc, w_loc * m) == (E, width):
+        return "tp"
+    raise ValueError(f"MoE wi: {e_loc} experts x {w_loc} columns on a model "
+                     f"axis of {m}, the whole leaf has {E} x {width}")
 
 
 def _moe_grouped(params, cfg: ModelConfig, x):
@@ -103,21 +171,118 @@ def _moe_grouped(params, cfg: ModelConfig, x):
     E = cfg.n_experts
     h = layers.rmsnorm(params["norm"], x, cfg.norm_eps)
     dispatch, combine, gate_idx, logits, probs = route(params, cfg, h)
+    layout = _layout(params, cfg)
+    if layout == "ep":              # this rank's E / M experts
+        n = params["wi"].shape[-3]
+        mine = slice(comm.model_rank() * n, (comm.model_rank() + 1) * n)
+        dispatch, combine = dispatch[:, :, mine], combine[:, :, mine]
+    he = comm.tp_enter(h) if layout != "whole" else h
 
-    xe = torch.einsum("bsec,bsd->becd", dispatch, h)            # [b, E, C, d]
+    xe = torch.einsum("bsec,bsd->becd", dispatch, he)           # [b, E, C, d]
     up = layers.einsum_f32("becd,edf->becf", xe, params["wi"]).to(h.dtype)
     if layers.is_glu(cfg.activation):
         gate, val = torch.chunk(up, 2, dim=-1)
         act = layers.glu_combine(cfg.activation, gate, val)
     else:
         act = layers.ACTIVATIONS[cfg.activation](up)
-    ye = layers.einsum_f32("becf,efd->becd", act, params["wo"]).to(h.dtype)
-    y = torch.einsum("bsec,becd->bsd", combine.to(h.dtype), ye)
+    ye = layers.einsum_f32("becf,efd->becd", act, params["wo"])
+    if layout == "whole":
+        y = torch.einsum("bsec,becd->bsd", combine.to(h.dtype),
+                         ye.to(h.dtype))
+    else:
+        # EP: this rank's experts' outputs, rounded as one device rounds
+        # them; TP: every expert's partial product over this rank's
+        # columns, in f32. Either way an f32 partial y, summed over the
+        # axis and rounded once.
+        if layout == "ep":
+            ye = ye.to(h.dtype).float()
+        part = torch.einsum("bsec,becd->bsd", combine.to(h.dtype).float(),
+                            ye)
+        y = comm.tp_sum(part, kind="tp_moe_sum").to(h.dtype)
 
-    # Aux losses: Switch load-balance + router z-loss, in f32.
+    # Aux losses: Switch load-balance + router z-loss, in f32, from the
+    # whole logits (the same on every rank of a model axis).
     frac_tokens = torch.mean(F.one_hot(gate_idx[..., 0].long(), E).float(),
                              dim=(0, 1))
     mean_probs = torch.mean(probs, dim=(0, 1))
     lb_loss = E * torch.sum(frac_tokens * mean_probs)
     z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
     return y, {"lb_loss": lb_loss, "z_loss": z_loss}
+
+
+# ---------------------------------------------------------------------------
+# Routes taken from another run
+# ---------------------------------------------------------------------------
+
+def kept_choices(dispatch, gate_idx):
+    """[b, s, k] bool: each token's choices that found a capacity slot."""
+    return dispatch.sum(-1).gather(-1, gate_idx) > 0
+
+
+def forced_route(params, cfg: ModelConfig, h, experts, kept):
+    """route's outputs for h [b, s, d] with each token's experts and kept
+    choices [b, s, k] given: the gates come from this path's own router,
+    renormalised over the given experts as `route` does, and every kept
+    choice has a slot of its own (capacity decides nothing)."""
+    b, s, _ = h.shape
+    E, k = cfg.n_experts, experts.shape[-1]
+    logits = router_logits(params, cfg, h)
+    probs = torch.softmax(logits, dim=-1)
+    gates = probs.gather(-1, experts)
+    gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+    sel = F.one_hot(experts, E) * kept[..., None]
+    flat = sel.reshape(b, s * k, E)                       # [b, s*k, E]
+    slot = (torch.cumsum(flat, dim=1) - flat).reshape(b, s, k, E)
+    C = max(1, int(flat.sum(dim=1).max()))
+    dispatch = torch.zeros((b, s, E, C), dtype=h.dtype, device=h.device)
+    combine = torch.zeros((b, s, E, C), dtype=torch.float32, device=h.device)
+    for j in range(k):
+        oh = (F.one_hot(slot[:, :, j].clamp(max=C - 1), C)
+              * sel[:, :, j, :, None]).to(h.dtype)        # [b, s, E, C]
+        dispatch = dispatch + oh
+        combine = combine + oh.float() * gates[..., j, None, None]
+    return dispatch, combine, experts, logits, probs
+
+
+@contextlib.contextmanager
+def routing(hook):
+    """`route` replaced by hook(route, params, cfg, h) for the duration
+    (the MoE layers call it through this module)."""
+    global route
+    orig = route
+    route = lambda params, cfg, h: hook(orig, params, cfg, h)  # noqa: E731
+    try:
+        yield
+    finally:
+        route = orig
+
+
+class RouteTape:
+    """A routing hook (`routing`) that keeps every `route` call of a run,
+    in call order: the experts and kept choices [b, s, k] on the CPU
+    (`calls`). With `forced` (another run's `calls`, a run of the same
+    schedule: the same groups in the same order) call i takes forced[i]'s
+    experts and kept choices through `forced_route`; its own are still
+    kept, so the two tapes show where this run's router would part from
+    the other's."""
+
+    def __init__(self, forced=None):
+        self.calls = []
+        self.forced = forced
+
+    def __call__(self, route_fn, params, cfg, h):
+        out = route_fn(params, cfg, h)
+        i = len(self.calls)
+        self.calls.append((out[2].cpu(), kept_choices(out[0], out[2]).cpu()))
+        if self.forced is None:
+            return out
+        if i >= len(self.forced):
+            raise ValueError(f"MoE route call {i}: the forced tape has "
+                             f"{len(self.forced)} calls")
+        ex, kp = self.forced[i]
+        if tuple(ex.shape) != tuple(out[2].shape):
+            raise ValueError(f"MoE route call {i} routes {tuple(out[2].shape)}"
+                             f", the forced tape {tuple(ex.shape)}: another "
+                             "schedule")
+        return forced_route(params, cfg, h, ex.to(h.device),
+                            kp.to(h.device))

@@ -492,13 +492,36 @@ def _per_leaf(draw, fn):
     return normal
 
 
+def _draw_local(draw, gen, shape, dtype, dev, spec, mesh):
+    """This rank's block of a leaf that `draw` (layers._normal) would make
+    whole: a leaf of three or more axes slice by slice along its leading
+    axis, as `draw` makes it, each slice drawn (the same draws in the same
+    order) and only this rank's kept, cut at once; a smaller leaf drawn
+    whole and cut."""
+    import torch
+    if len(shape) < 3:
+        return local_slice(draw(gen, shape, dtype, dev), spec, mesh).clone()
+    mine = _slices(shape, spec, mesh)[0]
+    out = torch.empty(local_shape(shape, spec, mesh), dtype=dtype,
+                      device=dev)
+    inner = type(spec)(spec[1:])
+    for r in range(shape[0]):
+        piece = _draw_local(draw, gen, shape[1:], dtype, dev, inner, mesh)
+        if mine.start <= r < mine.stop:
+            out[r - mine.start] = piece
+    return out
+
+
 def init_local_params(gen, cfg: ModelConfig, device, spec_tree, mesh):
     """models.init_params(gen, cfg, device) as this rank's shards: the
-    same draws from `gen` in the same order, each random leaf drawn whole
-    (one at a time) and cut to its shard at once, so the full tree never
-    exists on the device. The leaves made otherwise (norms, conv taps,
-    RG-LRU gates) are small and cut after. `spec_tree` is `param_specs`'s
-    (its `GluSpec` leaves are cut half by half)."""
+    same draws from `gen` in the same order, each random leaf cut to its
+    shard as it is drawn (a stacked or expert leaf slice by slice along
+    its leading axes, `_draw_local`), so neither the full tree nor a full
+    stacked leaf ever exists on the device: the peak while drawing is this
+    rank's shards plus one 2-D draw (the largest: the embedding table, in
+    f32 and in the param dtype, before its cut). The leaves made otherwise
+    (norms, conv taps, RG-LRU gates) are small and cut after. `spec_tree`
+    is `param_specs`'s (its `GluSpec` leaves are cut half by half)."""
     from repro_torch.models import layers
     from repro_torch.models.model import init_params
     from repro_torch.tree import tree_map, tree_paths
@@ -512,12 +535,12 @@ def init_local_params(gen, cfg: ModelConfig, device, spec_tree, mesh):
                                                   tree_paths(spec_tree))}
     order, cut = iter([spec_of[id(t)] for t in drawn]), set()
 
-    def keep(full):
-        t = local_slice(full, next(order), mesh).clone()
+    def keep(g, shape, dtype, dev):
+        t = _draw_local(draw, g, tuple(shape), dtype, dev, next(order), mesh)
         cut.add(id(t))
         return t
 
-    layers._normal = _per_leaf(draw, keep)
+    layers._normal = keep
     try:
         params = init_params(gen, cfg, device=device)
     finally:

@@ -59,19 +59,22 @@ _NOT_PORTED = "is not ported: ROADMAP queue A item 5"
 
 
 def model_axis_problems(cfg: ModelConfig, m: int,
-                        kv_shard: str = "heads") -> list:
+                        kv_shard: str = "heads", *,
+                        serving: bool = False) -> list:
     """Why `cfg` cannot run tensor-parallel on a model axis of `m` with
-    the cache layout `kv_shard` (empty: it can): the all-attention dense
-    archs, heads, kv heads, d_ff and the padded vocab split over the axis,
-    the cache over kv heads. Serving and training share this one list;
-    each reason names ROADMAP queue A item 5."""
+    the cache layout `kv_shard` (empty: it can): the all-attention archs,
+    heads, kv heads, d_ff and the padded vocab split over the axis, the
+    cache over kv heads. Serving and training share this list but for one
+    reason: MoE blocks, which `serving` runs on a model axis (expert
+    parallelism, or tensor parallelism inside the experts: models.moe)
+    and training does not yet. Each reason names ROADMAP queue A item 5."""
     out = []
     if m <= 1:
         return out
     if any(b.is_recurrent for b in cfg.blocks()):
         out.append(f"a model axis above 1 over recurrent blocks (the "
                    f"'inner' / 'lru' widths) {_NOT_PORTED}")
-    if cfg.is_moe:
+    if cfg.is_moe and not serving:
         out.append(f"a model axis above 1 over MoE blocks (expert "
                    f"parallelism, or tensor parallelism inside the "
                    f"experts) {_NOT_PORTED}")
@@ -97,15 +100,15 @@ def serving_mesh_problems(cfg: ModelConfig, mesh_shape,
                           kv_shard: str = "heads") -> list:
     """Why serving cannot run on `mesh_shape` ({axis: size}) with the
     cache layout `kv_shard`: serving is tensor-parallel over "model"
-    (model_axis_problems), every other axis of size 1. Each reason names
-    ROADMAP queue A item 5."""
+    (model_axis_problems with `serving`: MoE blocks included), every other
+    axis of size 1. Each reason names ROADMAP queue A item 5."""
     out = []
     for axis in ("pod", "data", "pipe"):
         if int(mesh_shape.get(axis, 1)) > 1:
             out.append(f"serving over a {axis!r} axis above 1 (the paged "
                        f"pool's blocks sharded over it) {_NOT_PORTED}")
     return out + model_axis_problems(cfg, int(mesh_shape.get("model", 1)),
-                                     kv_shard)
+                                     kv_shard, serving=True)
 
 
 def _check(problems, cfg, mesh_shape):
@@ -125,8 +128,8 @@ def check_training_mesh(cfg: ModelConfig, mesh_shape,
                         kv_shard: str = "heads"):
     """Raise NotImplementedError with the first reason the single and scan
     schedules cannot train on `mesh_shape`: model_axis_problems of its
-    model axis (a model axis inside the pipeline is validate_pipeline's
-    refusal, the reference's)."""
+    model axis, MoE blocks among them (a model axis inside the pipeline is
+    validate_pipeline's refusal, the reference's)."""
     _check(model_axis_problems(cfg, int(mesh_shape.get("model", 1)),
                                kv_shard), cfg, mesh_shape)
 

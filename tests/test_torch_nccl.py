@@ -3,8 +3,8 @@ against the same collectives over gloo, the training CLI on
 data:2,pipe:2 (FSDP gathers, the 1F1B pipeline's sends, the gradient
 reductions, the mesh checkpoint saved and resumed) against the same runs
 over gloo, and the serve CLI tensor-parallel on model:2 (the f32 partial
-sums, the vocab gather, the retention's attention mass) against the same
-run over gloo. Needs two (the collectives, the serve CLI) or four (the
+sums, the vocab gather, the retention's attention mass; a MoE arch's
+experts split over the ranks) against the same run over gloo. Needs two (the collectives, the serve CLI) or four (the
 training CLI) CUDA devices and skips without them; run on a four-card
 machine with
 
@@ -37,6 +37,10 @@ SERVE = ("--arch mistral-nemo-12b --reduced --depth 2 --kv paged --compact "
          "--chunk-prefill 16 --kv-block 4 --kv-quant int8 --kv-retain 2 "
          "--requests 6 --prompt-lens 8,20,40 --gen-lens 4,12 --device cuda "
          "--model-parallel 2")
+# reduced mixtral-8x7b on model:2 under the plan's expert parallelism
+SERVE_MOE = ("--arch mixtral-8x7b --reduced --depth 2 --kv paged --compact "
+             "--chunk-prefill 16 --kv-block 4 --requests 6 --prompt-lens "
+             "8,20,40 --gen-lens 4,12 --device cuda --model-parallel 2")
 
 
 def _cards(n):
@@ -100,8 +104,8 @@ def test_nccl_mesh_trains_and_resumes_as_gloo(tmp_path):
         assert got[s] == pytest.approx(want[s], rel=1e-4), (s, got, want)
 
 
-def _serve(backend):
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *SERVE.split(),
+def _serve(backend, argv=SERVE):
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *argv.split(),
            "--dist-backend", backend]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
@@ -121,6 +125,20 @@ def test_nccl_tensor_parallel_serving_emits_gloos_tokens():
     _cards(2)
     want, ranks_g = _serve("gloo")
     got, ranks_n = _serve("nccl")
+    assert len(want) == len(got) == 1 and got == want
+    assert [d for _, _, d in ranks_n] == [want[0]] * 2
+    assert [st for _, st, _ in ranks_n] == ["0", "0"]
+    assert all(int(st) > 0 for _, st, _ in ranks_g)
+
+
+def test_nccl_moe_serving_on_model2_emits_gloos_tokens():
+    """Reduced mixtral-8x7b on model:2 (each rank half the experts: the
+    router's columns gathered, the experts' partial outputs summed) over
+    nccl, one card a rank, emits the tokens of the same run over gloo, on
+    every rank, staging nothing through the host."""
+    _cards(2)
+    want, ranks_g = _serve("gloo", SERVE_MOE)
+    got, ranks_n = _serve("nccl", SERVE_MOE)
     assert len(want) == len(got) == 1 and got == want
     assert [d for _, _, d in ranks_n] == [want[0]] * 2
     assert [st for _, st, _ in ranks_n] == ["0", "0"]

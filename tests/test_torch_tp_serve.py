@@ -319,8 +319,18 @@ def test_measurer_max_over_ranks_gives_every_rank_one_plan():
     ("gemma3-12b", {"data": 1, "model": 16}, "kv_shard='seq'"),
 ])
 def test_serving_refusals_name_queue_a_item_5(arch, mesh, what):
+    """Each case is refused naming queue A item 5, but the MoE blocks:
+    serving runs them on a model axis (expert parallelism, or tensor
+    parallelism inside the experts), and only training refuses them."""
     cfg = get_config(arch)
     problems = SCH.serving_mesh_problems(cfg, mesh)
+    if what == "MoE blocks":
+        assert problems == []
+        SCH.check_serving_mesh(cfg, mesh)
+        with pytest.raises(NotImplementedError,
+                           match="MoE blocks.*queue A item 5"):
+            SCH.check_training_mesh(cfg, mesh)
+        return
     assert any(what in p for p in problems), problems
     with pytest.raises(NotImplementedError, match="queue A item 5"):
         SCH.check_serving_mesh(cfg, mesh)
