@@ -10,7 +10,7 @@
     python3 chip_smoke.py --phases 1,12   # build + the training CLI only
     python3 chip_smoke.py --phases 1,13   # build + MoE and prefix embeds only
     python3 chip_smoke.py --phases 1,14   # build + the parallel layer only
-    python3 chip_smoke.py --phases 1,14 --par-runs "0 m1,d"
+    python3 chip_smoke.py --phases 1,14 --par-runs "0 m1 d2,d"
                                           # build + phase 14's model:2 run
     python3 chip_smoke.py --phases 1,15   # build + the dry-run, roofline,
                                           # hillclimb and reports only
@@ -166,7 +166,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      h2o-danube-1.8b at full width, [4, 2048], 3 steps, seed 0,
      --optimizer adamw_f32, ranks sharing the card over gloo (every
      collective staged through the host), the runs of a wave (PAR_WAVES)
-     beside each other: (0) one rank at 4, 1 and 2 microbatches at full
+     beside each other: (0) one rank at 4 and 2 microbatches at full
      depth (24 layers), and at 1 and 2 at PAR_CUT (2) layers, the losses
      and gradient norms to match; (a) --mesh pipe:2, 4 microbatches (the
      1F1B pipeline, 2 ranks); (b) --mesh data:2, 1 microbatch, PAR_CUT
@@ -175,24 +175,37 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      rank held), onto data:2,pipe:2 (4 ranks) and onto model:2 (2 ranks),
      each rank's leaves bit for bit the slices of the one-device restore;
      (c) --mesh data:2,pipe:2, 2 microbatches, PAR_CUT layers (4 ranks);
-     (d) --mesh model:2, 1 microbatch, 24 layers (tensor parallelism, 2
-     ranks), saving a checkpoint restored onto one device and onto data:2
-     as (b)'s; (e) --mesh data:2,model:2, PAR_CUT layers (FSDP over data
+     (d) --mesh model:2, 1 microbatch, PAR_CUT layers (tensor
+     parallelism, 2 ranks), saving a checkpoint restored onto one device
+     and onto data:2 as (b)'s; (e) --mesh data:2,model:2, PAR_CUT layers (FSDP over data
      and tensor parallelism over model, 4 ranks); (f) --mesh model:2
      --backend cuda, PAR_CUT layers: the online phase classifies and plans
      (remat, microbatches) from train steps CudaMeasurer measures over the
-     model group, every rank's class and plan one; then compressed_psum
-     over a data:2 world on CUDA tensors the size of the largest leaf,
-     within 1.5 x scale. Each run is judged as its wave ends. Fails on a
+     model group, every rank's class and plan one; (g) mixtral-8x7b at
+     full width and MX_TRAIN_DEPTH (2) of its 32 layers, [2, 2048],
+     Adafactor, --mesh model:2 --backend cuda under the expert
+     parallelism its plan resolves (4 experts a rank), writing its MoE
+     routes and a checkpoint (restored onto one device and onto model:2
+     under tensor parallelism inside the experts), against one rank
+     replaying its routes (g one), its kept choices against the global
+     capacity rule exactly, a free one rank's route partings counted
+     (g free); (h) mixtral-8x7b at PAR_H_DEPTH (1) layer on model:2 under
+     tensor parallelism inside the experts, by rank functions beside (g)'s
+     wave, against one rank in this process taking its routes; then
+     compressed_psum over a data:2 world on CUDA tensors the size of the
+     largest leaf, within 1.5 x scale. Each run is judged once its
+     one-rank run has ended. Fails on a
      rank's non-zero exit, step 1's loss more than 1e-4 or its gradient
-     norm more than 1e-3 relative from the one-rank run's at the same
-     depth and microbatches (later steps' losses 1e-3), per-rank
+     norm (a MoE arch's routers' norm too) more than 1e-3 relative from
+     the one-rank run's at the same depth and microbatches (later steps'
+     losses 1e-3), per-rank
      parameter elements other than the spec tree's (pipe:2:
      predictor.sharded_param_count exactly), flash launches per rank other
      than stage layers x microbatches x steps (forward twice under the
      pipeline's recompute or a remat), on a model axis the leaves a rank
-     holds whole (the norms) other than bit-identical on a model group's
-     ranks after the last step, or ranks planning apart; prints each
+     holds whole (the norms) or the MoE routes other than bit-identical
+     on a model group's ranks after the last step, or ranks planning
+     apart; prints each
      rank's max_memory_allocated against the predictor's figure, the step
      wall and the bytes staged a step, by kind.
  15. the dry-run, the roofline, the hillclimb and the reports, through
@@ -327,6 +340,7 @@ from repro_torch.optim.compress import compressed_psum  # noqa: E402
 from repro_torch.parallel import comm as COMM  # noqa: E402
 from repro_torch.parallel import sharding as SHD  # noqa: E402
 from repro_torch.runtime import fault as FT  # noqa: E402
+from repro_torch.runtime import schedule as SCH  # noqa: E402
 from repro_torch.runtime import serve_step as SS  # noqa: E402
 from repro_torch.runtime import train_step as TS  # noqa: E402
 from repro_torch.search import execplan as XP  # noqa: E402
@@ -1186,6 +1200,14 @@ def phase_kernels():
                lens=[333, 200], qdt=qdt, **TPB)
             fb(f"tp K{K} G4 hd80 s517 blind rows window4096 {t}", b=1,
                s=517, blind=30, qdt=qdt, **TPB)
+    # phase 14(g) and (h): mixtral-8x7b's training rows [2, 2048] under its
+    # 4096 window, a rank of model:2 at 4 of its 8 kv heads (16 query
+    # heads) and the one-rank runs at all 8 (32), G 4, hd 128
+    for K in (4, 8):
+        MXT = dict(K=K, G=4, hd=128, window=4096)
+        name = f"mixtral train K{K} [2, 2048, {4 * K}, 128] window4096 bf16"
+        f(name, b=2, s=2048, **MXT)
+        fb(name, b=2, s=2048, **MXT)
     errs["flash_attention_bwd"] = max(bwd_errs.values())
 
     def ml(name, **kw):
@@ -3672,47 +3694,67 @@ PAR_CLI = ["--arch", TR_ARCH, "--seq", str(TR_SEQ), "--batch", str(TR_BATCH),
            "--steps", str(PAR_STEPS), "--lr", str(TR_LR), "--log-every",
            "1", "--seed", str(PAR_SEED), "--optimizer", "adamw_f32",
            "--device", "cuda", "--dist-backend", "gloo"]
-# the depth (layers) that the gloo runs over a data axis (b, c, e) and the
-# online phase's run (f) are cut to, for the script's time limit, and their
-# one-rank runs beside them at that depth (PERF.md lists each cut with the
-# seconds it saved); the one-rank runs at full depth, (a) and (d) keep the
-# config's 24 layers, and no run cuts width
+# the depth (layers) that the gloo runs over a data or model axis (b)-(f)
+# are cut to, for the script's time limit, and their one-rank runs beside
+# them at that depth (PERF.md lists each cut with the seconds it saved);
+# the one-rank runs at full depth and (a) keep the config's 24 layers, and
+# no run cuts width
 PAR_CUT = 2
 M1C, M2C = f"0 m1 d{PAR_CUT}", f"0 m2 d{PAR_CUT}"
 CKPT = "ckpt"        # the run saves its checkpoint at its last step
+ROUTES = "routes"    # the run writes its MoE routes (--routes-out)
+REPLAY = "replay"    # the run takes (g)'s routes (--replay-routes)
+# (g): mixtral-8x7b at full width and 2 of its 32 layers (depth the one
+# cut), trained with Adafactor (its AdamW state would be 25 GB a layer
+# pair) at [2, 2048], one routing group of 2048 a row; on model:2 under the
+# expert parallelism its plan resolves (8 experts tile the axis: 4 a rank),
+# planned by CudaMeasurer over the model group; judged against one rank at
+# the same depth that takes the ranks' routes ("g one"), and a free one
+# rank ("g free") whose route partings are counted
+MX_TRAIN_DEPTH = 2
+MX_TRAIN = ("--arch", MX_ARCH, "--batch", "2", "--optimizer", "adafactor")
 # (tag, --mesh, microbatches (None: the online phase plans them and the
 # remat), the one-rank run whose losses it matches ("{m}": at its planned
 # microbatches), depth (0: the config's), extra CLI flags)
 PAR_RUNS = (
     ("0 m4", "", 4, None, 0, ()),
-    ("0 m1", "", 1, None, 0, ()),
     ("0 m2", "", 2, None, 0, ()),
     (M1C, "", 1, None, PAR_CUT, ()),
     (M2C, "", 2, None, PAR_CUT, ()),
     ("a", "pipe:2", 4, "0 m4", 0, ()),
     ("b", "data:2", 1, M1C, PAR_CUT, (CKPT,)),
     ("c", "data:2,pipe:2", 2, M2C, PAR_CUT, ()),
-    ("d", "model:2", 1, "0 m1", 0, (CKPT,)),
+    ("d", "model:2", 1, M1C, PAR_CUT, (CKPT,)),
     ("e", "data:2,model:2", 1, M1C, PAR_CUT, ()),
     ("f", "model:2", None, "0 m{m} d" + str(PAR_CUT), PAR_CUT,
-     ("--backend", "cuda")))
+     ("--backend", "cuda")),
+    ("g", "model:2", 1, "g one", MX_TRAIN_DEPTH,
+     (CKPT, ROUTES, "--backend", "cuda") + MX_TRAIN),
+    ("g one", "", 1, None, MX_TRAIN_DEPTH, (REPLAY, ROUTES) + MX_TRAIN),
+    ("g free", "", 1, None, MX_TRAIN_DEPTH, (ROUTES,) + MX_TRAIN))
 # the runs that share the card at once (each a process of its own and its
 # ranks; a run's peak is its own process's). A one-rank run at full depth
-# peaks at 35, 43 and 53 GB at 4, 2 and 1 microbatches, a rank of (a)
-# near 17 GB; the runs at PAR_CUT layers at 12-15 GB one rank, 3-10 GB a
-# rank on a mesh; (d)'s two ranks near 38 GB each, 76 GB of the card's
-# 79 GiB, so nothing else fits beside (d) and it runs alone
-PAR_WAVES = (("0 m4", M1C, "f"), ("0 m1", "b"), ("a", "e"),
-             ("0 m2", M2C, "c"), ("d",))
+# peaks at 35 and 43 GB at 4 and 2 microbatches, a rank of (a) near 17 GB;
+# the runs at PAR_CUT layers at 12-15 GB one rank, 3-10 GB a rank on a
+# mesh; a rank of (g) 12-16 GB, its one-rank runs 25-30 GB each; (h) (rank
+# functions, "h") two ranks near 8 GB, then one rank in this process. (g)'s
+# one-rank runs need its routes, so they run in the last wave, beside (d)
+PAR_WAVES = (("0 m4", M1C, "f"), ("b", "g", "h"), ("a", "e"),
+             ("0 m2", M2C, "c"), ("d", "g one", "g free"))
 # (the run whose checkpoint, the layouts it is restored onto by ranks of
-# their own); each restore is also held against the run's own ranks, and
-# is made while the next wave runs (a few GB beside (a) and (e))
-PAR_RESTORES = (("b", ("data:2,pipe:2", "model:2")), ("d", ("data:2",)))
+# their own, a run in whose wave the restore is made (None: after the
+# last wave)); each restore is also held against the run's own ranks. A
+# layout's " tp" puts a MoE arch's experts under tensor parallelism
+# inside the experts (Strategy(ep=False)), else the run's own strategy
+PAR_RESTORES = (("b", ("data:2,pipe:2", "model:2"), "a"),
+                ("d", ("data:2",), None), ("g", ("model:2 tp",), None))
 # step 1 is taken before any update: its loss and gradient norm are the
 # same in every layout up to the order of its sums (its loss at random
 # weights is about ln V whatever the layout, so the norm is the sharper
-# test of a gradient); later steps drift a little further. PR 22's sound
-# runs spread 0 (step 1) and up to 6.8e-5 (later) on the loss
+# test of a gradient; for a MoE arch the routers' part of the norm too,
+# which a wrong sum of the gates' or the router's gradient moves while the
+# whole norm barely does); later steps drift a little further. Sound runs
+# have spread 0 (step 1) and up to 6.8e-5 (later) on the loss
 PAR_FIRST_BOUND = 1e-4
 PAR_GNORM_BOUND = 1e-3
 PAR_LATER_BOUND = 1e-3
@@ -3722,25 +3764,36 @@ PAR_RANK_LINE = re.compile(
     r"([0-9.]+) GB; flash launches forward (\d+), backward (\d+); staged "
     r"through the host ([0-9.]+) B a step; collectives ([0-9.]+) s a step; "
     r"by kind \((.*)\); state fingerprint (\w+); model-whole fingerprint "
-    r"(\w+)$", re.M)
+    r"(\w+)(?:; routes digest (\w+))?$", re.M)
+PAR_STEP_LINE = re.compile(
+    r"^step +\d+ loss=([0-9.]+) gnorm=([0-9.]+) lr=\S+"
+    r"(?: router_gnorm=([0-9.e+-]+))?$", re.M)
 
 
 def par_mesh(spec):
-    return LT.parse_mesh(spec) if spec else {}
+    return LT.parse_mesh(spec.split()[0]) if spec else {}
 
 
-def par_cfg(depth):
-    cfg = get_config(TR_ARCH)
+def par_flag(tag, flag, default):
+    """The value of `flag` among run `tag`'s extra CLI flags."""
+    extra = PAR_BY_TAG[tag][5]
+    return extra[extra.index(flag) + 1] if flag in extra else default
+
+
+def par_cfg(tag):
+    cfg = get_config(par_flag(tag, "--arch", TR_ARCH))
+    depth = PAR_BY_TAG[tag][4]
     return depth_variant(cfg, depth) if depth else cfg
 
 
-def par_layout(cfg, mesh):
+def par_layout(cfg, mesh, ep=False, kind="adamw_f32"):
     """(the spec tree of the trainer's {"params", "opt"} checkpoint on
-    `mesh`, a target of this rank's leaf shapes on the meta device)."""
+    `mesh` under Strategy(ep), a target of this rank's leaf shapes on the
+    meta device)."""
     abstract = init_params(None, cfg, device="meta")
-    strategy = SHD.Strategy(pipeline=mesh.axis_size("pipe") > 1)
+    strategy = SHD.Strategy(ep=ep, pipeline=mesh.axis_size("pipe") > 1)
     specs = SHD.param_specs(cfg, abstract, strategy, mesh)
-    ocfg = OPT.OptimizerConfig(kind="adamw_f32")
+    ocfg = OPT.OptimizerConfig(kind=kind)
     local = tree_map(lambda t, s: torch.empty(
         SHD.local_shape(t.shape, s, mesh), dtype=t.dtype, device="meta"),
         abstract, specs)
@@ -3773,6 +3826,10 @@ def rank_elements(cfg, shape, strategy=None):
     return out
 
 
+def routes_path(tmp, tag):
+    return os.path.join(tmp, f"routes_{tag.replace(' ', '_')}.pt")
+
+
 def start_par(tag, tmp):
     """The training CLI of run `tag` in a subprocess leading a process
     group of its own (it spawns its ranks on the card, joined over gloo),
@@ -3787,7 +3844,11 @@ def start_par(tag, tmp):
     if CKPT in extra:
         cmd += ["--ckpt-dir", os.path.join(tmp, f"ckpt_{tag}"),
                 "--ckpt-interval", "0"]
-    cmd += [x for x in extra if x != CKPT]
+    if ROUTES in extra:
+        cmd += ["--routes-out", routes_path(tmp, tag)]
+    if REPLAY in extra:
+        cmd += ["--replay-routes", routes_path(tmp, "g")]
+    cmd += [x for x in extra if x not in (CKPT, ROUTES, REPLAY)]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     name = tag.replace(" ", "_")
     out = open(os.path.join(tmp, f"{name}.out"), "w+")
@@ -3832,52 +3893,87 @@ def parse_par(tag, text, wall):
     """A finished run's output, logged line by line, and parsed."""
     for line in text.splitlines():
         log(f"[14 {tag}] | {line}")
-    steps = re.findall(r"^step +\d+ loss=([0-9.]+) gnorm=([0-9.]+)", text,
-                       re.M)
-    losses = [float(a) for a, _ in steps]
-    gnorms = [float(b) for _, b in steps]
+    steps = PAR_STEP_LINE.findall(text)
+    losses = [float(a) for a, _, _ in steps]
+    gnorms = [float(b) for _, b, _ in steps]
+    router = [float(c) for _, _, c in steps if c]
     done = re.search(r"^done: (\d+) steps in ([0-9.]+)s", text, re.M)
     pred = re.search(r"= ([0-9.]+) GB \(class", text)
-    execution = re.search(r"^execution: .*remat=(\w+) micro=(\d+) ", text,
-                          re.M)
+    execution = re.search(r"^execution: .*remat=(\w+) micro=(\d+) .*"
+                          r"ep=(True|False)", text, re.M)
     ranks = [dict(rank=int(m[0]), elements=int(m[1].replace(",", "")),
                   peak=float(m[2]) * 1e9, fwd=int(m[3]), bwd=int(m[4]),
                   staged=float(m[5]), comm_s=float(m[6]), kinds=m[7],
-                  state=m[8], whole=m[9])
+                  state=m[8], whole=m[9], routes=m[10])
              for m in PAR_RANK_LINE.findall(text)]
     if len(losses) != PAR_STEPS or not all(np.isfinite(losses)) or \
-            done is None or pred is None or execution is None:
-        fail(f"phase 14({tag}): losses {losses}, or no done, prediction or "
-             "execution line")
+            done is None or pred is None or execution is None or \
+            (par_cfg(tag).is_moe and len(router) != PAR_STEPS):
+        fail(f"phase 14({tag}): losses {losses}, router gradient norms "
+             f"{router}, or no done, prediction or execution line")
     peak = re.search(r"max_memory_allocated\(\) ([0-9.]+) GB", text)
     planning = re.search(r"^planning: (\d+) steps measured on the card in "
                          r"([0-9.]+)s", text, re.M)
-    return {"losses": losses, "gnorms": gnorms,
+    return {"losses": losses, "gnorms": gnorms, "router": router,
             "step_s": float(done.group(2)) / PAR_STEPS,
             "wall": wall, "predicted": float(pred.group(1)) * 1e9,
             "remat": execution.group(1), "micro": int(execution.group(2)),
+            "ep": execution.group(3) == "True",
             "ranks": ranks, "peak0": float(peak.group(1)) * 1e9,
             "plans": re.findall(r"^rank \d+ plan: (.*)$", text, re.M),
             "planning": planning.groups() if planning else None,
             "memory": re.search(r"^memory: .*$", text, re.M)}
 
 
-def judge_run(runs, tag):
+def judge_steps(tag, run, want, where):
+    """A run's losses, step 1's gradient norm and (a MoE arch) step 1's
+    router gradient norm against another run's (`want`, described by
+    `where`): PAR_FIRST_BOUND, PAR_LATER_BOUND and PAR_GNORM_BOUND.
+    Returns the log text."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                               want["losses"])]
+    rel_g = abs(run["gnorms"][0] - want["gnorms"][0]) / abs(want["gnorms"][0])
+    rel_r = (abs(run["router"][0] - want["router"][0]) / abs(
+        want["router"][0]) if run["router"] else 0.0)
+    text = (f"losses {run['losses']} against {where}'s {want['losses']} "
+            f"(relative {rel}); step 1's gradient norm {run['gnorms'][0]!r}"
+            f" against {want['gnorms'][0]!r} (relative {rel_g!r}); later "
+            f"norms {run['gnorms'][1:]} against {want['gnorms'][1:]}")
+    if run["router"]:
+        text += (f"; the routers' gradient norms {run['router']} against "
+                 f"{want['router']} (step 1 relative {rel_r!r})")
+    if rel[0] > PAR_FIRST_BOUND or max(rel[1:]) > PAR_LATER_BOUND or \
+            rel_g > PAR_GNORM_BOUND or rel_r > PAR_GNORM_BOUND:
+        fail(f"phase 14({tag}): {text}: bounds {PAR_FIRST_BOUND} (step "
+             f"1's loss), then {PAR_LATER_BOUND}; {PAR_GNORM_BOUND} on "
+             "step 1's gradient norms")
+    return text
+
+
+def judge_run(runs, tag, tmp=None):
     """Phase 14's gates on one run: its losses and gradient norms against
     its one-rank run, each rank's parameter elements and flash launches,
-    on a model axis the fingerprints of the leaves it holds whole equal on
-    a model group's ranks and every rank's plan one; and its report.
-    Returns the run's flash forward and backward launches over its
-    ranks."""
-    _, mesh, _, ref, depth, _ = PAR_BY_TAG[tag]
+    on a model axis the fingerprints of the leaves it holds whole (and a
+    MoE arch's routes) equal on a model group's ranks and every rank's
+    plan one; a MoE run's kept choices the global capacity rule's; and its
+    report. Returns the run's flash forward and backward launches over its
+    ranks (none for a one-rank run, which prints no rank line)."""
+    _, mesh, _, ref, _, _ = PAR_BY_TAG[tag]
     run = runs[tag]
-    cfg = par_cfg(depth)
+    cfg = par_cfg(tag)
     shape = par_mesh(mesh)
     micro = run["micro"]
+    pipe = shape.get("pipe", 1)
+    model = shape.get("model", 1)
+    layers = cfg.n_layers // pipe
+    twice = (2 if pipe > 1 else 1) * (2 if run["remat"] != "none" else 1)
+    want_fwd = layers * micro * twice * PAR_STEPS
+    want_bwd = layers * micro * PAR_STEPS
     if ref is None:
-        log(f"[14 {tag}] one rank, {cfg.n_layers} layers, {micro} "
-            f"microbatches: losses {run['losses']}, gradient norms "
-            f"{run['gnorms']}, {run['step_s']:.2f} s a step, peak "
+        log(f"[14 {tag}] one rank, {cfg.name} at {cfg.n_layers} layers, "
+            f"{micro} microbatches: losses {run['losses']}, gradient norms "
+            f"{run['gnorms']}{', router ' + str(run['router']) if run['router'] else ''}"
+            f", {run['step_s']:.2f} s a step, peak "
             f"{run['peak0'] / 1e9:.3f} GB against "
             f"{run['predicted'] / 1e9:.3f} GB predicted "
             f"({run['peak0'] / run['predicted']:.4f}), {run['wall']:.2f} s "
@@ -3886,28 +3982,13 @@ def judge_run(runs, tag):
     ref = ref.format(m=micro)
     if ref not in runs:
         fail(f"phase 14({tag}): no one-rank run {ref!r} to match its plan")
-    want, want_g = runs[ref]["losses"], runs[ref]["gnorms"]
-    rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"], want)]
-    rel_g = abs(run["gnorms"][0] - want_g[0]) / abs(want_g[0])
-    log(f"[14 {tag}] --mesh {mesh}, {cfg.n_layers} layers, remat "
-        f"{run['remat']}, {micro} microbatches: losses {run['losses']} "
-        f"against ({ref})'s {want} (relative {rel}); step 1's gradient norm "
-        f"{run['gnorms'][0]!r} against {want_g[0]!r} (relative {rel_g!r}); "
-        f"later norms {run['gnorms'][1:]} against {want_g[1:]}; "
-        f"{run['step_s']:.2f} s a step, {run['wall']:.2f} s with start-up")
-    if rel[0] > PAR_FIRST_BOUND or max(rel[1:]) > PAR_LATER_BOUND or \
-            rel_g > PAR_GNORM_BOUND:
-        fail(f"phase 14({tag}): losses {run['losses']} against ({ref})'s "
-             f"{want}: relative {rel} (bounds {PAR_FIRST_BOUND}, then "
-             f"{PAR_LATER_BOUND}); step 1's gradient norm relative {rel_g} "
-             f"(bound {PAR_GNORM_BOUND})")
-    pipe = shape.get("pipe", 1)
-    model = shape.get("model", 1)
-    layers = cfg.n_layers // pipe
-    twice = (2 if pipe > 1 else 1) * (2 if run["remat"] != "none" else 1)
-    want_fwd = layers * micro * twice * PAR_STEPS
-    want_bwd = layers * micro * PAR_STEPS
-    elements = rank_elements(cfg, shape)
+    text = judge_steps(tag, run, runs[ref], f"({ref})")
+    log(f"[14 {tag}] --mesh {mesh}, {cfg.name} at {cfg.n_layers} layers, "
+        f"remat {run['remat']}, {micro} microbatches, ep={run['ep']}: "
+        f"{text}; {run['step_s']:.2f} s a step, {run['wall']:.2f} s with "
+        "start-up")
+    elements = rank_elements(cfg, shape, SHD.Strategy(
+        ep=run["ep"], pipeline=pipe > 1))
     sharded = PR.sharded_param_count(cfg, shape)
     if len(run["ranks"]) != len(elements):
         fail(f"phase 14({tag}): {len(run['ranks'])} rank lines")
@@ -3938,12 +4019,14 @@ def judge_run(runs, tag):
     if model > 1:
         groups = {}
         for r in run["ranks"]:
-            groups.setdefault(r["rank"] // model, set()).add(r["whole"])
+            groups.setdefault(r["rank"] // model, set()).add(
+                (r["whole"], r["routes"]))
         if any(len(g) != 1 for g in groups.values()):
             fail(f"phase 14({tag}): the leaves the model axis holds whole "
-                 f"(the norms) differ between a model group's ranks after "
-                 f"the last step: {groups}")
-        log(f"[14 {tag}] the leaves each rank holds whole (the norms) are "
+                 f"(the norms), or the MoE routes, differ between a model "
+                 f"group's ranks after the last step: {groups}")
+        log(f"[14 {tag}] the leaves each rank holds whole (the norms) "
+            f"{'and the MoE routes ' if cfg.is_moe else ''}are "
             f"bit-identical on a model group's ranks after step "
             f"{PAR_STEPS}: fingerprints {sorted(groups.items())}")
     if len(set(run["plans"])) != 1 or len(run["plans"]) != len(elements):
@@ -3953,7 +4036,190 @@ def judge_run(runs, tag):
             f"{run['planning'][0]} steps measured over the model group in "
             f"{run['planning'][1]}s; every rank's class and plan "
             f"{run['plans'][0]}; {run['memory'].group(0)} (rank 0)")
+    if cfg.is_moe:
+        judge_train_routes(runs, tag, ref, cfg, tmp)
     return fwd, bwd
+
+
+def tape_list(calls):
+    """A keyed route tape's entries in the order of their sites."""
+    return [calls[k] for k in sorted(calls, key=repr)]
+
+
+def judge_train_routes(runs, tag, ref, cfg, tmp):
+    """A MoE run's routes (rank 0's tape: the ranks route alike, their
+    digests equal): every routing group's kept choices the global capacity
+    rule's (judge_routes, which also counts where the one rank replaying
+    them, `ref`, would have routed otherwise); a free one-rank run's
+    partings from them and its losses, counted, not judged."""
+    ranks = torch.load(routes_path(tmp, tag))
+    one = torch.load(routes_path(tmp, ref))
+    if sorted(ranks, key=repr) != sorted(one, key=repr):
+        fail(f"phase 14({tag}): ({ref}) routed at other sites than the "
+             "ranks")
+    log(f"[14 {tag}] {len(ranks)} routing calls (step, layer), "
+        + judge_routes(tag, cfg, tape_list(one), tape_list(ranks)))
+    free = f"{ref.split()[0]} free"
+    if free in runs:
+        mine = torch.load(routes_path(tmp, free))
+        n, parted = route_partings(tag, tape_list(mine), tape_list(ranks))
+        rel = [abs(a - b) / abs(b) for a, b in zip(runs[free]["losses"],
+                                                   runs[tag]["losses"])]
+        log(f"[14 {tag}] a free one-rank run ({free}; its own routes; "
+            f"counted, not judged): routes apart from the ranks' at "
+            f"{parted} of {n} routed tokens, {parted / max(n, 1):.5f}; its "
+            f"losses {runs[free]['losses']} relative {rel} to the ranks', "
+            f"step 1's gradient norm {runs[free]['gnorms'][0]!r}, the "
+            f"routers' {runs[free]['router'][0]!r}")
+
+
+# ---------------------------------------------------------------------------
+# (h): mixtral-8x7b under tensor parallelism inside the experts, by rank
+# functions
+# ---------------------------------------------------------------------------
+
+# 1 of mixtral-8x7b's 32 layers at full width, on {data: 1, model: 2} under
+# Strategy(ep=False): each rank its [gate_r | val_r] columns of all 8
+# experts (wi [1, 8, 4096, 14336] a rank) and the router whole; the steps,
+# optimizer and rows of (g), data from its own seed
+PAR_H_DEPTH = 1
+PAR_H_SEED = PAR_SEED + 14
+
+
+def h_cfg():
+    return depth_variant(get_config(MX_ARCH), PAR_H_DEPTH)
+
+
+def h_train(cfg, params, device, mesh=None, specs=None, forced=None):
+    """(h)'s PAR_STEPS Adafactor steps on `params` (this rank's shards on
+    `mesh`, or the whole tree), every MoE routing call on a keyed route
+    tape (forced to `forced`'s entries where given): the metrics, the tape,
+    the flash launches, the step seconds and the final params and state."""
+    tcfg = TS.TrainStepConfig(
+        optimizer=OPT.OptimizerConfig(kind="adafactor", lr=TR_LR),
+        warmup_steps=max(PAR_STEPS // 10, 1), total_steps=PAR_STEPS)
+    step = SCH.make_train_step(cfg, tcfg, mesh=mesh, spec_tree=specs)
+    state = OPT.init_state(tcfg.optimizer, params)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TR_SEQ, global_batch=2,
+                                    seed=PAR_H_SEED))
+    tape = MOE.RouteTape(forced, keyed=True)
+    fa, fb = flash_attention.launches, flash_attention_bwd.launches
+    t0 = time.time()
+    with MOE.routing(tape):
+        params, state, _, hist = FT.run_train_loop(
+            train_step=step, params=params, opt_state=state, pipeline=pipe,
+            n_steps=PAR_STEPS)
+    torch.cuda.synchronize(device)
+    return {"losses": [m["loss"] for m in hist],
+            "gnorms": [m["grad_norm"] for m in hist],
+            "router": [m["router_grad_norm"] for m in hist],
+            "tape": tape.calls, "fwd": flash_attention.launches - fa,
+            "bwd": flash_attention_bwd.launches - fb,
+            "step_s": (time.time() - t0) / PAR_STEPS, "params": params,
+            "state": state}
+
+
+def h_rank(device):
+    """One rank of (h), spawned by launch.mesh.spawn_ranks: its shards
+    under Strategy(ep=False), drawn from PAR_H_SEED as one device draws
+    them, then h_train; its shapes, peak, staged bytes by kind and
+    fingerprints."""
+    mesh = LM.build_mesh({"data": 1, "model": 2})
+    cfg = h_cfg()
+    specs = SHD.param_specs(cfg, init_params(None, cfg, device="meta"),
+                            SHD.Strategy(ep=False), mesh)
+    params = SHD.init_local_params(
+        torch.Generator(device=device).manual_seed(PAR_H_SEED), cfg,
+        device, specs, mesh)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    COMM.staged_by_kind.clear()
+    out = h_train(cfg, params, device, mesh, specs)
+    whole = [t for t, s in zip(tree_leaves(out["params"]),
+                               tree_leaves(specs)) if "model" not in s.axes()]
+    return {"rank": mesh.rank, "losses": out["losses"],
+            "gnorms": out["gnorms"], "router": out["router"],
+            "tape": out["tape"], "fwd": out["fwd"], "bwd": out["bwd"],
+            "step_s": out["step_s"],
+            "peak": torch.cuda.max_memory_allocated(device),
+            "wi": tuple(out["params"]["units"][0]["mlp"]["wi"].shape),
+            "router_shape": tuple(
+                out["params"]["units"][0]["mlp"]["router"].shape),
+            "elements": sum(t.numel() for t in tree_leaves(out["params"])),
+            "staged": {k: v / PAR_STEPS
+                       for k, v in COMM.staged_by_kind.items()},
+            "whole": CK.fingerprint(whole)}
+
+
+def run_h():
+    """(h): its two ranks on the card over gloo, then one rank (in this
+    process, the whole params from the same seed) taking their routes:
+    (the ranks' results, the one rank's, the ranks' wall, the one rank's
+    wall)."""
+    t0 = time.time()
+    ranks = LM.spawn_ranks(h_rank, 2, "gloo", "cuda", timeout=PAR_TIMEOUT)
+    t1 = time.time()
+    cfg = h_cfg()
+    params = init_params(torch.Generator(device=DEV).manual_seed(PAR_H_SEED),
+                         cfg, device=DEV)
+    one = h_train(cfg, params, DEV, forced=ranks[0]["tape"])
+    del params, one["params"], one["state"]
+    torch.cuda.empty_cache()
+    return ranks, one, t1 - t0, time.time() - t1
+
+
+def judge_h(ranks, one, wall, one_wall):
+    """(h)'s gates: each rank's wi every expert's [gate_r | val_r] columns
+    and the router whole, its elements the spec tree's, its flash launches
+    layers x steps; the ranks' losses, norms, routes and the leaves they
+    hold whole equal; the one rank's losses and norms against theirs
+    (judge_steps); the ranks' kept choices the global capacity rule's.
+    Returns the launches over the ranks and the one rank."""
+    cfg = h_cfg()
+    shape = {"data": 1, "model": 2}
+    elements = rank_elements(cfg, shape, SHD.Strategy(ep=False))
+    want = PAR_H_DEPTH * PAR_STEPS
+    r0 = ranks[0]
+    for r in ranks:
+        log(f"[14 h] rank {r['rank']} of 2: {r['elements']:,} parameter "
+            f"elements (spec tree {elements[r['rank']]:,}), wi {r['wi']}, "
+            f"router {r['router_shape']}; max_memory_allocated "
+            f"{r['peak'] / 1e9:.3f} GB; flash launches {r['fwd']} / "
+            f"{r['bwd']} (predicted {want} / {want}); {r['step_s']:.2f} s "
+            f"a step; staged through the host a step "
+            f"{ {k: round(v) for k, v in r['staged'].items()} } "
+            f"({nvidia_smi_line()})")
+        if r["wi"] != (PAR_H_DEPTH, cfg.n_experts, cfg.d_model, cfg.d_ff) \
+                or r["router_shape"] != (PAR_H_DEPTH, cfg.d_model,
+                                         cfg.n_experts):
+            fail(f"phase 14(h): rank {r['rank']}'s wi {r['wi']} or router "
+                 f"{r['router_shape']} is not TP inside the experts")
+        if r["elements"] != elements[r["rank"]]:
+            fail(f"phase 14(h): rank {r['rank']} holds {r['elements']} "
+                 f"parameter elements, spec tree {elements[r['rank']]}")
+        if (r["fwd"], r["bwd"]) != (want, want):
+            fail(f"phase 14(h): rank {r['rank']} launched {r['fwd']} / "
+                 f"{r['bwd']} flash kernels, predicted {want} / {want}")
+        if (r["losses"], r["gnorms"], r["router"], r["whole"]) != (
+                r0["losses"], r0["gnorms"], r0["router"], r0["whole"]):
+            fail("phase 14(h): the ranks' losses, norms or the leaves they "
+                 "hold whole differ")
+        if route_partings("h", tape_list(r["tape"]),
+                          tape_list(r0["tape"]))[1]:
+            fail("phase 14(h): the ranks route apart")
+    if (one["fwd"], one["bwd"]) != (want, want):
+        fail(f"phase 14(h): one rank launched {one['fwd']} / {one['bwd']} "
+             f"flash kernels, predicted {want} / {want}")
+    text = judge_steps("h", r0, one, "one rank taking their routes")
+    routes = judge_routes("h", cfg, tape_list(one["tape"]),
+                          tape_list(r0["tape"]))
+    log(f"[14 h] 2 ranks, {cfg.name} at {cfg.n_layers} layer(s), tensor "
+        f"parallelism inside the experts: {text}; {routes}; walls "
+        f"{wall:.2f}s (2 ranks with start-up, beside the runs of its wave) "
+        f"and {one_wall:.2f}s (one rank, {one['step_s']:.2f} s a step)")
+    return (sum(r["fwd"] for r in ranks) + one["fwd"],
+            sum(r["bwd"] for r in ranks) + one["bwd"])
 
 
 def _slices_fingerprint(full, specs, mesh):
@@ -3961,24 +4227,34 @@ def _slices_fingerprint(full, specs, mesh):
                            zip(tree_leaves(full), tree_leaves(specs))])
 
 
-def restore_fingerprints(device, ckpt_dir, depth, mesh_spec):
-    """One rank of `mesh_spec`: the checkpoint restored onto this rank's
-    layout, on the card; its fingerprint."""
+def layout_ep(run, layout):
+    """The expert layout a restore onto `layout` takes: " tp" tensor
+    parallelism inside the experts, else the run's own."""
+    return False if layout.endswith(" tp") else run["ep"]
+
+
+def restore_fingerprints(device, ckpt_dir, tag, mesh_spec, ep):
+    """One rank of `mesh_spec`: run `tag`'s checkpoint restored onto this
+    rank's layout (under Strategy(ep)), on the card; its fingerprint and
+    the shape of its first unit's leaves."""
     mesh = LM.build_mesh(par_mesh(mesh_spec))
-    specs, target = par_layout(par_cfg(depth), mesh)
+    specs, target = par_layout(par_cfg(tag), mesh, ep,
+                               par_flag(tag, "--optimizer", "adamw_f32"))
     tree, manifest = CK.restore(ckpt_dir, target, device=device, mesh=mesh,
                                 spec_tree=specs)
+    mlp = tree["params"]["units"][0]["mlp"]
     return {"rank": mesh.rank, "step": manifest["step"],
             "on_card": all(t.device == device for t in tree_leaves(tree)),
-            "fingerprint": CK.fingerprint(tree)}
+            "fingerprint": CK.fingerprint(tree),
+            "wi": tuple(mlp["wi"].shape)}
 
 
-def _spawn_restore(ckpt_dir, depth, layout):
+def _spawn_restore(ckpt_dir, tag, layout, ep):
     """(the ranks' restore_fingerprints onto `layout`, seconds)."""
     t0 = time.time()
     res = LM.spawn_ranks(restore_fingerprints, int(np.prod(list(
         par_mesh(layout).values()))), "gloo", "cuda",
-        args=(ckpt_dir, depth, layout), timeout=PAR_TIMEOUT)
+        args=(ckpt_dir, tag, layout, ep), timeout=PAR_TIMEOUT)
     return res, time.time() - t0
 
 
@@ -3989,33 +4265,36 @@ def check_restore(runs, tag, layouts, ckpt_dir):
     and, at the same time, onto each layout of `layouts` by ranks of their
     own, each rank's leaves bit for bit the slices of the one-device
     restore."""
-    _, mesh, _, _, depth, _ = PAR_BY_TAG[tag]
-    cfg = par_cfg(depth)
+    cfg = par_cfg(tag)
     t0 = time.time()
     pool = ThreadPoolExecutor(len(layouts))
-    spawned = {layout: pool.submit(_spawn_restore, ckpt_dir, depth, layout)
+    spawned = {layout: pool.submit(_spawn_restore, ckpt_dir, tag, layout,
+                                   layout_ep(runs[tag], layout))
                for layout in layouts}
     try:
-        return _check_restores(runs, tag, cfg, mesh, ckpt_dir, spawned, t0)
+        return _check_restores(runs, tag, cfg, ckpt_dir, spawned, t0)
     finally:
         pool.shutdown(wait=True)
 
 
-def _check_restores(runs, tag, cfg, mesh, ckpt_dir, spawned, t0):
+def _check_restores(runs, tag, cfg, ckpt_dir, spawned, t0):
+    mesh = PAR_BY_TAG[tag][1]
+    kind = par_flag(tag, "--optimizer", "adamw_f32")
     abstract = init_params(None, cfg, device="meta")
-    ocfg = OPT.OptimizerConfig(kind="adamw_f32")
+    ocfg = OPT.OptimizerConfig(kind=kind)
     full, manifest = CK.restore(ckpt_dir, {
         "params": abstract, "opt": OPT.init_state(ocfg, abstract)},
-        device="cuda")
+        device=DEV)
     n_leaves = len(tree_leaves(full))
     size = sum(t.numel() * t.element_size() for t in tree_leaves(full))
     if manifest["step"] != PAR_STEPS:
         fail(f"phase 14({tag}): its checkpoint holds step "
              f"{manifest['step']}")
     shape = par_mesh(mesh)
+    ep = runs[tag]["ep"]
     for r in runs[tag]["ranks"]:
         rm = rank_mesh(shape, r["rank"])
-        got = _slices_fingerprint(full, par_layout(cfg, rm)[0], rm)
+        got = _slices_fingerprint(full, par_layout(cfg, rm, ep, kind)[0], rm)
         if got != r["state"]:
             fail(f"phase 14({tag}): rank {r['rank']}'s slices of its "
                  f"checkpoint restored onto one device (fingerprint {got}) "
@@ -4027,10 +4306,12 @@ def _check_restores(runs, tag, cfg, mesh, ckpt_dir, spawned, t0):
     out = {"leaves": n_leaves, "bytes": size, "s": {}}
     for layout, fut in spawned.items():
         lshape = par_mesh(layout)
+        lep = layout_ep(runs[tag], layout)
         res, out["s"][layout] = fut.result()
         for r in res:
             rm = rank_mesh(lshape, r["rank"])
-            want = _slices_fingerprint(full, par_layout(cfg, rm)[0], rm)
+            want = _slices_fingerprint(full, par_layout(cfg, rm, lep,
+                                                        kind)[0], rm)
             if (r["fingerprint"] != want or not r["on_card"]
                     or r["step"] != PAR_STEPS):
                 fail(f"phase 14({tag}): its checkpoint restored onto "
@@ -4038,9 +4319,10 @@ def _check_restores(runs, tag, cfg, mesh, ckpt_dir, spawned, t0):
                      f"{r['fingerprint']} against the one-device restore's "
                      f"slices {want}, on the card {r['on_card']}, step "
                      f"{r['step']}")
-        log(f"[14 {tag}] its checkpoint restored onto {layout}: every "
-            f"rank's leaves equal the one-device restore's slices bit for "
-            f"bit ({out['s'][layout]:.2f}s, beside the one-device restore)")
+        log(f"[14 {tag}] its checkpoint restored onto {layout} (wi "
+            f"{res[0]['wi']} a rank): every rank's leaves equal the "
+            f"one-device restore's slices bit for bit "
+            f"({out['s'][layout]:.2f}s, beside the one-device restore)")
     del full
     torch.cuda.empty_cache()
     return out
@@ -4094,25 +4376,34 @@ def psum_phase(cfg):
 PAR_BY_TAG = {r[0]: r for r in PAR_RUNS}
 
 
+def par_ready(runs, tag):
+    """Whether run `tag`'s one-rank run has finished (or it has none)."""
+    ref = PAR_BY_TAG[tag][3]
+    return ref is None or ref.format(m=runs[tag]["micro"]) in runs
+
+
 def phase_parallel(only=None):
     """Phase 14: the trainer on meshes of ranks sharing the card over
     gloo, the runs of a wave (PAR_WAVES) at once, each run judged against
-    its one-rank run; the checkpoints of (b) and (d) restored onto other
-    layouts; compressed_psum at the largest leaf's size. `only` limits the
-    runs (and the checks that need them) to those tags."""
+    its one-rank run once that has run ((h), rank functions, in a thread
+    beside its wave); the checkpoints of (b), (d) and (g) restored onto
+    other layouts; compressed_psum at the largest leaf's size. `only`
+    limits the runs (and the checks that need them) to those tags."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_par_")
     runs, walls, launches, restores = {}, {}, {}, {}
 
-    def restore_all(pending):
-        for tag, layouts in pending:
+    def restore_all(todo):
+        for tag, layouts, _ in todo:
             restores[tag] = check_restore(runs, tag, layouts,
                                           os.path.join(tmp, f"ckpt_{tag}"))
             shutil.rmtree(os.path.join(tmp, f"ckpt_{tag}"),
                           ignore_errors=True)
 
-    pending = []             # restores to make while the next wave runs
+    later = []               # restores to make while a later wave runs
+    pool = ThreadPoolExecutor(1)
+    h = None
     try:
         for wave in PAR_WAVES:
             wave = [t for t in wave if only is None or t in only]
@@ -4123,22 +4414,40 @@ def phase_parallel(only=None):
             t0 = time.time()
             started = {}
             try:
+                if "h" in wave:
+                    h = pool.submit(run_h)
                 for tag in wave:
-                    started[tag] = start_par(tag, tmp)
-                restore_all(pending)
+                    if tag != "h":
+                        started[tag] = start_par(tag, tmp)
+                now = [r for r in later if r[2] in wave]
+                later = [r for r in later if r not in now]
+                restore_all(now)
             except BaseException:
                 stop_ranks(started)
                 raise
-            pending = [r for r in PAR_RESTORES if r[0] in wave]
+            later += [r for r in PAR_RESTORES if r[0] in wave]
             done = wait_par(started)
+            if "h" in wave:
+                try:
+                    h = h.result()
+                except (RuntimeError, TimeoutError) as e:
+                    fail(f"phase 14(h): its ranks failed: {e}")
             walls["wave " + ", ".join(wave)] = time.time() - t0
-            for tag in wave:
+            for tag in started:
                 runs[tag] = parse_par(tag, *done[tag])
-            for tag in wave:
-                launches[tag] = judge_run(runs, tag)
-        restore_all(pending)
-        psum = psum_phase(par_cfg(0)) if only is None else None
+            for tag in runs:
+                if tag not in launches and par_ready(runs, tag):
+                    launches[tag] = judge_run(runs, tag, tmp)
+            if "h" in wave:
+                launches["h"] = judge_h(*h)
+                walls["h"], walls["h one rank"] = h[2], h[3]
+        for tag in runs:
+            if tag not in launches:
+                launches[tag] = judge_run(runs, tag, tmp)
+        restore_all(later)
+        psum = psum_phase(par_cfg("0 m4")) if only is None else None
     finally:
+        pool.shutdown(wait=True)
         shutil.rmtree(tmp, ignore_errors=True)
     log("[14] walls " + ", ".join(f"({k}) {v:.2f}s"
                                   for k, v in walls.items()))

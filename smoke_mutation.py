@@ -17,7 +17,12 @@ gathered shards concatenated in reverse rank order, each for 14(b)
 (data:2); the tensor-parallel entry op's backward without its all-reduce
 (each rank's share of the input's gradient taken for the whole), and
 `tp_sum`'s backward all-reducing the gradient again (M times it), each
-for 14(d) (model:2). Phase 15: the step counter
+for 14(d) (model:2); a MoE block's gates entering `combine` without the
+sum of their gradient over the model axis (each rank's experts' share
+taken for the whole), and the EP router gather's backward summing the
+router's gradient over the group in place of taking this rank's columns
+(M times it), each for 14(g) (mixtral-8x7b on model:2 under EP) against
+its one rank replaying the ranks' routes. Phase 15: the step counter
 counting a train step's forward alone (the backward's and the
 optimizer's FLOPs dropped), and the card dry-run measuring with the
 simulator instead of the card. Phase 16 (the serve CLI on a model axis):
@@ -33,9 +38,11 @@ unsummed over the model axis, caught at 16(f) by the ranks emitting
 apart.
 
     python3 smoke_mutation.py              # 13(b) at x0.9 and x0.97, 13(a) at x0.9
-    python3 smoke_mutation.py --phase 14   # the four parallel-layer faults
+    python3 smoke_mutation.py --phase 14   # the six parallel-layer faults
     python3 smoke_mutation.py --phase 15   # the two dry-run faults
     python3 smoke_mutation.py --phase 16   # the four model-axis faults
+    python3 smoke_mutation.py --phase 14 --only "MoE gates,router gather"
+                                           # only the faults so named
 
 Prints, for each case, whether the phase failed (caught) or passed.
 Needs a CUDA device.
@@ -60,13 +67,23 @@ FAULTS_14 = (
      "0 m1 d2,b"),
     ("the entry op's backward without its all-reduce",
      "src/repro_torch/parallel/comm.py",
-     "        return all_reduce(grad, ctx.group, kind=\"tp_enter_grad\"), "
+     "        return all_reduce(grad, ctx.group, kind=ctx.kind), None, "
      "None\n",
-     "        return grad, None\n", "0 m1,d"),
+     "        return grad, None, None\n", "0 m1 d2,d"),
     ("tp_sum's backward all-reducing again (M times the gradient)",
      "src/repro_torch/parallel/comm.py",
      "        return grad, None, None\n",
-     "        return all_reduce(grad, model_group()), None, None\n", "0 m1,d"),
+     "        return all_reduce(grad, model_group()), None, None\n",
+     "0 m1 d2,d"),
+    ("the MoE gates' gradient left unsummed over the model axis",
+     "src/repro_torch/models/moe.py",
+     "    return comm.tp_enter(gates, kind=\"tp_gate_grad\")\n",
+     "    return gates\n", "g,g one"),
+    ("the router gather's backward summing over the group",
+     "src/repro_torch/models/moe.py",
+     "        w = comm.tp_gather_last(w.contiguous(), kind=\"tp_router\")\n",
+     "        w = comm.AllGather.apply(w.contiguous(), comm.model_group(),\n"
+     "                                 w.dim() - 1)\n", "g,g one"),
 )
 FAULTS_15 = (
     ("the counter drops the backward's FLOPs",
@@ -104,11 +121,14 @@ FAULTS_16 = (
 FAULTS = {14: FAULTS_14, 15: FAULTS_15, 16: FAULTS_16}
 
 
-def planted(phase):
-    """Each fault of `phase` in a copy of the sources, where the phase
-    runs after phase 1: whether it failed (caught)."""
+def planted(phase, only=()):
+    """Each fault of `phase` (those whose name holds a string of `only`,
+    when given) in a copy of the sources, where the phase runs after phase
+    1: whether it failed (caught)."""
     tag = f"[{phase}"
     for name, rel, old, new, *runs in FAULTS[phase]:
+        if only and not any(o in name for o in only):
+            continue
         tmp = tempfile.mkdtemp(prefix="mutation_")
         try:
             shutil.copytree(os.path.join(HERE, "src"), os.path.join(tmp, "src"),
@@ -148,9 +168,13 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", type=int, choices=(13, 14, 15, 16),
                     default=13)
-    phase = ap.parse_args().phase
+    ap.add_argument("--only", default="",
+                    help="comma-separated parts of fault names: plant only "
+                         "the faults whose name holds one (phases 14-16)")
+    args = ap.parse_args()
+    phase = args.phase
     if phase in FAULTS:
-        return planted(phase)
+        return planted(phase, [o for o in args.only.split(",") if o])
     sys.path.insert(0, HERE)
     sys.argv = [os.path.join(HERE, "chip_smoke.py")]
     import torch

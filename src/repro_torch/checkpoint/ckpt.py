@@ -21,7 +21,9 @@ taken through torch, no ml_dtypes).
   `wi` (and the optimizer state that mirrors its last dim), whose rank
   blocks are [gate_r | val_r] under an `axes.GluSpec`, is written as the
   whole [gate | val] (`sharding.gather_leaf`) and cut so again on restore
-  (`sharding.local_slice`).
+  (`sharding.local_slice`). A MoE arch's expert leaves, split over the
+  experts (EP) or inside them (TP), are written whole the same way, so a
+  checkpoint of one layout restores onto the other, one device or data:2.
 - Fault tolerance: latest_step() skips uncommitted (tmp) dirs; a partial
   save never shadows the previous good step.
 """

@@ -230,7 +230,9 @@ class CudaMeasurer(MemoryMeasurer):
     Measures on one card, or over a {model: M} mesh inside a process group
     of exactly M ranks (`group`: the mesh's model group): each rank runs
     its shard's prefill, decode or train step (its params cut by
-    `sharding.init_local_params`, its cache at n_kv_heads / M heads, its
+    `sharding.init_local_params` under the default strategy, a MoE arch's
+    experts under EP where they tile the axis, else TP inside the
+    experts; its cache at n_kv_heads / M heads, its
     optimizer state over its shards, the step inside `comm.model_axis`:
     a train step is tensor-parallel forward and backward), and every
     reading is reduced with max

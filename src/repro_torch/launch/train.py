@@ -20,9 +20,18 @@ reference plans for a TPU v5e.
                       .auto_plan over the world's devices);
   --mesh data:2,pipe:2  a forced mesh: FSDP over "data", the 1F1B pipeline
                       over "pipe", tensor parallelism over "model" (the
-                      single and scan schedules, on the all-attention
-                      dense archs: runtime.schedule.check_training_mesh;
-                      not inside the pipeline).
+                      single and scan schedules, on archs without
+                      recurrent blocks; a MoE arch under expert
+                      parallelism where its experts tile the axis, else
+                      tensor parallelism inside the experts:
+                      runtime.schedule.check_training_mesh; not inside the
+                      pipeline);
+  --routes-out F      MoE archs: every routing call's experts and kept
+                      choices, keyed by (step, microbatch, layer), to F;
+  --replay-routes F   MoE archs: each routing call takes the entry of its
+                      (step, microbatch, layer) in another run's F (a
+                      remat recompute takes what its forward took), so a
+                      one-rank run can take a mesh's routes.
 
 A mesh of more than one rank runs as that many processes: under
 `torchrun` the world torchrun made (one process per rank, `--mesh auto`
@@ -37,8 +46,8 @@ on a mesh, one line a rank: its parameter elements, its peak, its flash
 forward / backward launches, the bytes its collectives staged through
 the host (in all and by kind), a fingerprint of its final state (params
 and optimizer state) and one of the leaves it holds whole on the model
-axis (equal on the ranks of a model group); and each rank's class and
-plan (the ranks of a `--backend cuda` model axis plan alike: its
+axis (equal on the ranks of a model group), with a route tape a digest
+of its MoE routes; and each rank's class and plan (the ranks of a `--backend cuda` model axis plan alike: its
 readings are reduced over the ranks).
 
 Examples:
@@ -65,6 +74,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import time
@@ -84,6 +94,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_attention_bwd as FB
 from repro_torch.launch import mesh as LM
 from repro_torch.models import init_params
+from repro_torch.models import moe as MOE
 from repro_torch.models.model import require_device
 from repro_torch.optim import optimizers as opt
 from repro_torch.parallel import comm
@@ -162,14 +173,23 @@ def parse_mesh(spec: str) -> dict:
     return out
 
 
+def routes_digest(calls) -> str:
+    """A digest of a keyed route tape's experts and kept choices, in the
+    order of their sites."""
+    return fingerprint([t for key in sorted(calls, key=repr)
+                        for t in calls[key]])
+
+
 def _report_ranks(mesh, params, opt_state, spec_tree, dev, before, steps,
-                  plan_line):
+                  plan_line, tape=None):
     """Rank 0 prints one line a rank: its parameter elements, its peak
     device memory, its flash launches, the bytes its collectives staged
     through the host (and by kind) and the seconds they took (host clock),
     a step; the fingerprint of its params and optimizer state
     (`ckpt.fingerprint`), and of its params the model axis does not split
-    (equal on every rank of a model group); then each rank's plan line.
+    (equal on every rank of a model group); with a route tape, the digest
+    of its routes (equal on every rank of a model group); then each rank's
+    plan line.
     nccl collectives run on the stream and are not timed. Returns 1 when
     a rank planned other than rank 0."""
     fwd, bwd, staged, secs = (a - b for a, b in zip(_counters()[:4],
@@ -186,11 +206,13 @@ def _report_ranks(mesh, params, opt_state, spec_tree, dev, before, steps,
             fwd, bwd, staged / steps, secs / steps,
             {k: v / steps for k, v in kinds.items()},
             fingerprint({"params": params, "opt": opt_state}),
-            fingerprint(whole), plan_line)
+            fingerprint(whole),
+            "" if tape is None else f"; routes digest "
+            f"{routes_digest(tape.calls)}", plan_line)
     rows = [None] * dist.get_world_size()
     dist.all_gather_object(rows, mine)
     gloo = dist.get_backend() == "gloo"
-    for r, n, pk, f, b, st, sec, by_kind, fp, fp_whole, _ in rows:
+    for r, n, pk, f, b, st, sec, by_kind, fp, fp_whole, routes, _ in rows:
         mem = ("not measured (CPU)" if pk is None
                else f"{pk / 1e9:.3f} GB")
         took = f"{sec:.2f} s a step" if gloo else "not timed (nccl)"
@@ -200,7 +222,7 @@ def _report_ranks(mesh, params, opt_state, spec_tree, dev, before, steps,
               f"{mem}; flash launches forward {f}, backward {b}; staged "
               f"through the host {st:.0f} B a step; collectives {took}; "
               f"by kind ({kind}); state fingerprint {fp}; model-whole "
-              f"fingerprint {fp_whole}")
+              f"fingerprint {fp_whole}{routes}")
     for row in rows:
         print(f"rank {row[0]} plan: {row[-1]}")
     bad = sum(row[-1] != rows[0][-1] for row in rows)
@@ -261,6 +283,17 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--routes-out", default="",
+                    help="MoE archs: write every MoE routing call's chosen "
+                         "experts and kept choices, keyed by (step, "
+                         "microbatch, layer), to this file (torch.save; "
+                         "rank 0)")
+    ap.add_argument("--replay-routes", default="",
+                    help="MoE archs: another run's --routes-out file (the "
+                         "same steps and rows): every MoE routing call "
+                         "takes the experts and kept choices of its (step, "
+                         "microbatch, layer) there (its own are still the "
+                         "ones --routes-out writes)")
     ap.add_argument("--dist-backend", default="",
                     choices=["", *LM.BACKENDS],
                     help="torch.distributed backend of a mesh's ranks "
@@ -280,6 +313,8 @@ def main(argv=None):
         cfg = cfg.reduced()
     if args.depth:
         cfg = depth_variant(cfg, args.depth)
+    if (args.routes_out or args.replay_routes) and not cfg.is_moe:
+        ap.error("--routes-out/--replay-routes need a MoE arch")
     if forced_mesh and forced_mesh.get("pipe", 1) <= 1:
         # refused here, before any rank starts
         SCH.check_training_mesh(cfg, forced_mesh)
@@ -445,18 +480,28 @@ def main(argv=None):
 
     def on_metrics(step, m):
         if step % args.log_every == 0:
+            router = (f" router_gnorm={m['router_grad_norm']:.6e}"
+                      if "router_grad_norm" in m else "")
             print(f"step {step:5d} loss={m['loss']:.6f} "
-                  f"gnorm={m['grad_norm']:.6f} lr={m['lr']:.2e}", flush=True)
+                  f"gnorm={m['grad_norm']:.6f} lr={m['lr']:.2e}{router}",
+                  flush=True)
+
+    tape = None
+    if args.routes_out or args.replay_routes:
+        tape = MOE.RouteTape(torch.load(args.replay_routes)
+                             if args.replay_routes else None, keyed=True)
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     before = _counters()
     t0 = time.time()
-    params, opt_state, last, hist = F.run_train_loop(
-        train_step=step_fn, params=params, opt_state=opt_state,
-        pipeline=data_pipe, n_steps=args.steps, ckpt_mgr=ckpt_mgr,
-        watchdog=watchdog, guard=guard, start_step=start_step,
-        on_metrics=on_metrics)
+    with (MOE.routing(tape) if tape is not None
+          else contextlib.nullcontext()):
+        params, opt_state, last, hist = F.run_train_loop(
+            train_step=step_fn, params=params, opt_state=opt_state,
+            pipeline=data_pipe, n_steps=args.steps, ckpt_mgr=ckpt_mgr,
+            watchdog=watchdog, guard=guard, start_step=start_step,
+            on_metrics=on_metrics)
     dt = time.time() - t0
     if hist:
         print(f"done: {last - start_step} steps in {dt:.1f}s "
@@ -467,9 +512,11 @@ def main(argv=None):
         print(f"memory: torch.cuda.max_memory_allocated() "
               f"{peak / 1e9:.3f} GB; predicted {(res + tra) / 1e9:.3f} GB; "
               f"measured / predicted {peak / (res + tra):.4f}")
+    if args.routes_out and (mesh is None or mesh.rank == 0):
+        torch.save(tape.calls, args.routes_out)
     if mesh is not None:
         return _report_ranks(mesh, params, opt_state, spec_tree, dev, before,
-                             last - start_step, plan_line)
+                             last - start_step, plan_line, tape)
     return 0
 
 

@@ -27,6 +27,7 @@ their gradients, so the sequence forward trains there too.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -410,19 +411,24 @@ def unit_stack_forward(units, cfg: ModelConfig, x, pos, *,
     if not cfg.unit or not cfg.repeats:
         return x, aux_acc
 
-    def unit_body(x, unit_params):
+    def unit_body(r, x, unit_params):
         aux: Dict[str, Any] = {}
         for i, blk in enumerate(cfg.unit):
-            x, _, a = block_apply(unit_params[i], cfg, blk, x, pos,
-                                  context=ctx, settings=settings)
+            # the layer names its MoE routing site (moe.RouteTape's key),
+            # inside the body, so a remat recompute names it again
+            with moe.site(layer=(r, i)):
+                x, _, a = block_apply(unit_params[i], cfg, blk, x, pos,
+                                      context=ctx, settings=settings)
             _merge_aux(aux, a)
         return x, aux
 
-    body = unit_wrapper(unit_body) if unit_wrapper else unit_body
     first = units[0]
     while isinstance(first, dict):
         first = next(iter(first.values()))
     for r in range(len(first)):
+        body = functools.partial(unit_body, r)
+        if unit_wrapper:
+            body = unit_wrapper(body)
         x, aux = body(x, [_tree_index(t, r) for t in units])
         _merge_aux(aux_acc, aux)
     return x, aux_acc
@@ -433,9 +439,11 @@ def _tail_forward(params, cfg: ModelConfig, x, pos, aux_acc, *,
                   block_tables=None):
     """The tail blocks without a cache; their aux merged into aux_acc."""
     for i, blk in enumerate(cfg.tail):
-        x, _, aux = block_apply(params["tail"][i], cfg, blk, x, pos,
-                                decode=decode, context=context,
-                                settings=settings, block_tables=block_tables)
+        with moe.site(layer=("tail", i)):
+            x, _, aux = block_apply(params["tail"][i], cfg, blk, x, pos,
+                                    decode=decode, context=context,
+                                    settings=settings,
+                                    block_tables=block_tables)
         _merge_aux(aux_acc, aux)
     return x
 

@@ -30,9 +30,21 @@ Each rank then runs its experts' products (EP) or its columns of every
 expert (TP), combines them into an f32 partial y, and `comm.tp_sum`
 sums the partials over the axis before the one rounding to the
 activation dtype, as `layers.out_proj` does. The normed input enters the
-expert products through `comm.tp_enter`. The backward through routing on
-a model axis is not ported: training refuses MoE blocks there
-(runtime.schedule.check_training_mesh).
+expert products through `comm.tp_enter`.
+
+Training runs the same forward on a model axis, and three collectives
+carry its gradients. An EP rank gathers the router's columns through
+`comm.tp_gather_last`, whose backward is this rank's columns of the
+whole router's gradient (every rank computes that whole gradient alike,
+so a sum would count it M times). The gates enter `combine` through
+`comm.tp_enter` (kind "tp_gate_grad"): each rank's partial y gives only
+its experts' (EP) or its columns' (TP) share of the gates' gradient, so
+the gradient is summed over the axis there, on the [b, s, k] gates,
+before it reaches the softmax, the router and the normed input. The aux
+losses read the probabilities and logits directly and are the same on
+every rank, so their gradient is not summed. The normed input's gradient
+is then the router path's (the same on every rank) plus the experts'
+(summed by the `comm.tp_enter` on the expert path).
 """
 from __future__ import annotations
 
@@ -96,9 +108,17 @@ def router_logits(params, cfg: ModelConfig, h):
             raise ValueError(f"router: {w.shape[-1]} expert columns on a "
                              f"model axis of {m}, the whole router has "
                              f"{cfg.n_experts}")
-        w = comm.all_gather(w.contiguous(), comm.model_group(), dim=-1,
-                            kind="tp_router")
+        w = comm.tp_gather_last(w.contiguous(), kind="tp_router")
     return torch.matmul(h.float(), w.float())
+
+
+def _gates(params, cfg: ModelConfig, gates):
+    """The gates [b, s, k] as they enter `combine`: on a model axis whose
+    ranks each combine a part of y (EP or TP), through `comm.tp_enter`, so
+    their gradient is summed over the axis; else as they are."""
+    if comm.model_size() == 1 or _layout(params, cfg) == "whole":
+        return gates
+    return comm.tp_enter(gates, kind="tp_gate_grad")
 
 
 def route(params, cfg: ModelConfig, h):
@@ -111,8 +131,8 @@ def route(params, cfg: ModelConfig, h):
     logits = router_logits(params, cfg, h)                        # [b, s, E]
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = top_k_lower_index(probs, k)             # [b, s, k]
-    gate_vals = gate_vals / torch.clamp(
-        gate_vals.sum(dim=-1, keepdim=True), min=1e-9)            # renormalize
+    gate_vals = _gates(params, cfg, gate_vals / torch.clamp(
+        gate_vals.sum(dim=-1, keepdim=True), min=1e-9))           # renormalize
 
     dispatch = torch.zeros((b, s, E, C), dtype=h.dtype, device=h.device)
     combine = torch.zeros((b, s, E, C), dtype=torch.float32, device=h.device)
@@ -229,7 +249,8 @@ def forced_route(params, cfg: ModelConfig, h, experts, kept):
     logits = router_logits(params, cfg, h)
     probs = torch.softmax(logits, dim=-1)
     gates = probs.gather(-1, experts)
-    gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+    gates = _gates(params, cfg, gates / torch.clamp(
+        gates.sum(dim=-1, keepdim=True), min=1e-9))
     sel = F.one_hot(experts, E) * kept[..., None]
     flat = sel.reshape(b, s * k, E)                       # [b, s*k, E]
     slot = (torch.cumsum(flat, dim=1) - flat).reshape(b, s, k, E)
@@ -257,32 +278,68 @@ def routing(hook):
         route = orig
 
 
-class RouteTape:
-    """A routing hook (`routing`) that keeps every `route` call of a run,
-    in call order: the experts and kept choices [b, s, k] on the CPU
-    (`calls`). With `forced` (another run's `calls`, a run of the same
-    schedule: the same groups in the same order) call i takes forced[i]'s
-    experts and kept choices through `forced_route`; its own are still
-    kept, so the two tapes show where this run's router would part from
-    the other's."""
+# the routing site in force: (name, value) pairs, outermost first (a train
+# step's ("step", i), a scan microbatch's ("micro", j), a layer's
+# ("layer", (repeat, position)) or ("layer", ("tail", i)))
+_site = ()
 
-    def __init__(self, forced=None):
-        self.calls = []
+
+@contextlib.contextmanager
+def site(**part):
+    """Name the enclosed routing calls' site: `part` (one name=value)
+    appended to the site in force for the duration."""
+    global _site
+    prev = _site
+    _site = prev + tuple(part.items())
+    try:
+        yield
+    finally:
+        _site = prev
+
+
+class RouteTape:
+    """A routing hook (`routing`) that keeps the experts and kept choices
+    [b, s, k] of every `route` call of a run, on the CPU (`calls`).
+
+    By default `calls` is a list in call order. With `keyed` (a training
+    run) it is a dict keyed by each call's site (`site`: step,
+    microbatch, layer), and a call at a site already kept (a remat
+    recompute of the layer in the backward) keeps nothing new; `keys`
+    lists every call's site in call order.
+
+    With `forced` (another run's `calls`: a list for a run of the same
+    schedule, the same groups in the same order; a dict for a keyed run)
+    each call takes the entry of its place or site through
+    `forced_route`, so a recompute takes what its forward took; its own
+    routes are still kept, so the two tapes show where this run's router
+    would part from the other's."""
+
+    def __init__(self, forced=None, keyed=False):
+        self.keyed = keyed or isinstance(forced, dict)
+        self.calls = {} if self.keyed else []
+        self.keys = []
         self.forced = forced
 
     def __call__(self, route_fn, params, cfg, h):
         out = route_fn(params, cfg, h)
-        i = len(self.calls)
-        self.calls.append((out[2].cpu(), kept_choices(out[0], out[2]).cpu()))
+        mine = (out[2].cpu(), kept_choices(out[0], out[2]).cpu())
+        if self.keyed:
+            key = _site
+            self.calls.setdefault(key, mine)
+        else:
+            key = len(self.calls)
+            self.calls.append(mine)
+        self.keys.append(key)
         if self.forced is None:
             return out
-        if i >= len(self.forced):
-            raise ValueError(f"MoE route call {i}: the forced tape has "
-                             f"{len(self.forced)} calls")
-        ex, kp = self.forced[i]
+        try:
+            ex, kp = self.forced[key]
+        except (IndexError, KeyError):
+            raise ValueError(f"MoE route call {key}: not in the forced tape "
+                             f"of {len(self.forced)} calls") from None
         if tuple(ex.shape) != tuple(out[2].shape):
-            raise ValueError(f"MoE route call {i} routes {tuple(out[2].shape)}"
-                             f", the forced tape {tuple(ex.shape)}: another "
-                             "schedule")
+            raise ValueError(f"MoE route call {key} routes "
+                             f"{tuple(out[2].shape)}, the forced tape "
+                             f"{tuple(ex.shape)}: another schedule")
         return forced_route(params, cfg, h, ex.to(h.device),
                             kp.to(h.device))

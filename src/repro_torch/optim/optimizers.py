@@ -13,7 +13,8 @@ update the tensors IN PLACE (under torch.no_grad()) and return the same
 trees. Leaves with a leading stacking axis (the unit pattern's [repeats,
 ...]) are updated one slice at a time: the update is elementwise along that
 axis, and the f32 temporaries of a whole full-width leaf would be
-gigabytes.
+gigabytes. A stacked MoE expert leaf [repeats, E, ...] is cut to one
+expert's matrix a slice, for the same reason.
 
 On a mesh (`spec_tree` and `mesh` given, the leaves this rank's shards)
 every reduction over a leaf spans its shards: the global norm sums each
@@ -25,8 +26,12 @@ a pipe mesh its column moment reduces over the pipe stages too. A model
 axis is one more such axis: a GLU `wi` split over it holds [gate_r |
 val_r] columns, and its column moment the same columns (`state_specs`
 keeps its `axes.GluSpec`); means and norms are sums, which the columns'
-order does not change. The state mirrors the parameters' specs
-(`state_specs`).
+order does not change. A MoE expert leaf [repeats, E, d, 2f] is the
+same: under tensor parallelism inside the experts its last dim is split
+over "model" (the row moment's mean reduces over it), under expert
+parallelism its expert dim (each expert's moments stay local, and the
+update's RMS and the global norm sum the expert shards once). The state
+mirrors the parameters' specs (`state_specs`).
 """
 from __future__ import annotations
 
@@ -68,9 +73,14 @@ def _acc_dtype(ocfg: OptimizerConfig) -> torch.dtype:
 
 
 def _slices(t: torch.Tensor):
-    """Views of t along its leading (stacking) axis when it has one (3 or
-    more dims), else t itself."""
-    return list(t.unbind(0)) if t.dim() >= 3 else [t]
+    """Views of t's 2-d matrices, its leading axes unbound in row-major
+    order (a stack over repeats [R, a, b], a stacked MoE expert leaf
+    [R, E, a, b]), when it has 3 or more dims; else t itself. A slice of
+    a stacked expert leaf is one expert's matrix: a whole [E, d, 2f]
+    slice's f32 temporaries would be gigabytes a layer."""
+    if t.dim() < 3:
+        return [t]
+    return [s for u in t.unbind(0) for s in _slices(u)]
 
 
 # ---------------------------------------------------------------------------
@@ -195,13 +205,16 @@ def _adamw(ocfg, params, grads, state, lr):
 
 
 def _factored_slices(p, f):
-    """The statistics of p slice by slice, as _slices(p) cuts p: a stacked
-    [R, a, b] leaf's vr [R, a] / vc [R, b] by their leading axis; a 2-d
-    leaf's whole (vr, vc) (a stacked [R, d] norm is factored over both
-    axes, as in the reference); a 1-d leaf's v."""
+    """The statistics of p slice by slice, as _slices(p) cuts p: a leaf
+    [..., a, b] of 3 or more dims has vr [..., a] / vc [..., b], cut along
+    the same leading axes in the same order (views); a 2-d leaf's whole
+    (vr, vc) (a stacked [R, d] norm is factored over both axes, as in the
+    reference); a 1-d leaf's v."""
     if p.dim() >= 3:
+        vr, vc = f["vr"], f["vc"]
         return [{"vr": a, "vc": b}
-                for a, b in zip(f["vr"].unbind(0), f["vc"].unbind(0))]
+                for a, b in zip(vr.view(-1, vr.shape[-1]).unbind(0),
+                                vc.view(-1, vc.shape[-1]).unbind(0))]
     return [f]
 
 

@@ -69,7 +69,8 @@ staged_bytes = 0
 seconds = 0.0
 # staged_bytes split by call kind: the collective's name, or the label its
 # caller gave ("tp_partial_sum", "tp_vocab_gather", "tp_embed", "tp_mass",
-# "tp_enter_grad")
+# "tp_enter_grad", and for MoE blocks "tp_router", "tp_moe_sum",
+# "tp_gate_grad")
 staged_by_kind = collections.Counter()
 _kind = None
 
@@ -300,25 +301,26 @@ class _TPSum(torch.autograd.Function):
 
 class _TPEnter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
+    def forward(ctx, t, group, kind):
+        ctx.group, ctx.kind = group, kind
         return t.view_as(t)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_reduce(grad, ctx.group, kind="tp_enter_grad"), None
+        return all_reduce(grad, ctx.group, kind=ctx.kind), None, None
 
 
 class _TPGatherLast(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, group):
+    def forward(ctx, t, group, kind):
         ctx.rank, ctx.width = dist.get_rank(group), t.shape[-1]
-        return all_gather(t, group, dim=t.dim() - 1, kind="tp_vocab_gather")
+        return all_gather(t, group, dim=t.dim() - 1, kind=kind)
 
     @staticmethod
     def backward(ctx, grad):
         w = ctx.width
-        return grad[..., ctx.rank * w:(ctx.rank + 1) * w].contiguous(), None
+        return (grad[..., ctx.rank * w:(ctx.rank + 1) * w].contiguous(),
+                None, None)
 
 
 def tp_sum(t: torch.Tensor, kind: str = "tp_partial_sum") -> torch.Tensor:
@@ -328,17 +330,21 @@ def tp_sum(t: torch.Tensor, kind: str = "tp_partial_sum") -> torch.Tensor:
     return _TPSum.apply(t, model_group(), kind)
 
 
-def tp_enter(t: torch.Tensor) -> torch.Tensor:
+def tp_enter(t: torch.Tensor, kind: str = "tp_enter_grad") -> torch.Tensor:
     """`t` (replicated over the model group) as the input of this rank's
     column-parallel products: unchanged forward; backward, the gradient
-    summed over the group. Outside a model axis, `t` itself."""
+    summed over the group (its staged bytes counted under `kind`). Outside
+    a model axis, `t` itself."""
     if _model_group is None:
         return t
-    return _TPEnter.apply(t, _model_group)
+    return _TPEnter.apply(t, _model_group, kind)
 
 
-def tp_gather_last(t: torch.Tensor) -> torch.Tensor:
+def tp_gather_last(t: torch.Tensor,
+                   kind: str = "tp_vocab_gather") -> torch.Tensor:
     """The model group's shards of `t` concatenated along its last dim, in
-    coordinate order (vocab-sharded logits). Backward: this rank's slice
-    of the gradient."""
-    return _TPGatherLast.apply(t, model_group())
+    coordinate order (vocab-sharded logits, an EP rank's router columns),
+    its staged bytes counted under `kind`. Backward: this rank's slice of
+    the gradient (the gathered tensor is used alike on every rank, so its
+    gradient is already the whole one there: no sum)."""
+    return _TPGatherLast.apply(t, model_group(), kind)

@@ -38,6 +38,7 @@ import torch
 from repro_torch.configs.base import TRAIN, ModelConfig
 from repro_torch.models import layers
 from repro_torch.models import model as M
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import cross_entropy
 from repro_torch.optim import optimizers as opt
 from repro_torch.optim.compress import compress_roundtrip
@@ -51,7 +52,7 @@ from repro_torch.runtime.schedule_kinds import (  # noqa: F401 — re-exported v
 from repro_torch.runtime.train_step import (TrainStepConfig, _trainable,
                                             grads_like, make_loss_fn,
                                             remat_wrapper, value_and_grad)
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
 DATA_AXES = ("pod", "data")
 
@@ -59,25 +60,20 @@ _NOT_PORTED = "is not ported: ROADMAP queue A item 5"
 
 
 def model_axis_problems(cfg: ModelConfig, m: int,
-                        kv_shard: str = "heads", *,
-                        serving: bool = False) -> list:
+                        kv_shard: str = "heads") -> list:
     """Why `cfg` cannot run tensor-parallel on a model axis of `m` with
-    the cache layout `kv_shard` (empty: it can): the all-attention archs,
-    heads, kv heads, d_ff and the padded vocab split over the axis, the
-    cache over kv heads. Serving and training share this list but for one
-    reason: MoE blocks, which `serving` runs on a model axis (expert
-    parallelism, or tensor parallelism inside the experts: models.moe)
-    and training does not yet. Each reason names ROADMAP queue A item 5."""
+    the cache layout `kv_shard` (empty: it can): the archs without
+    recurrent blocks (MoE blocks run under expert parallelism, or tensor
+    parallelism inside the experts: models.moe), heads, kv heads, d_ff and
+    the padded vocab split over the axis, the cache over kv heads. Serving
+    and training share this list. Each reason names ROADMAP queue A item
+    5."""
     out = []
     if m <= 1:
         return out
     if any(b.is_recurrent for b in cfg.blocks()):
         out.append(f"a model axis above 1 over recurrent blocks (the "
                    f"'inner' / 'lru' widths) {_NOT_PORTED}")
-    if cfg.is_moe and not serving:
-        out.append(f"a model axis above 1 over MoE blocks (expert "
-                   f"parallelism, or tensor parallelism inside the "
-                   f"experts) {_NOT_PORTED}")
     if cfg.n_kv_heads % m:
         out.append(f"kv_shard='seq' ({cfg.n_kv_heads} kv heads do not "
                    f"split over model:{m}; the cache would shard its "
@@ -100,15 +96,15 @@ def serving_mesh_problems(cfg: ModelConfig, mesh_shape,
                           kv_shard: str = "heads") -> list:
     """Why serving cannot run on `mesh_shape` ({axis: size}) with the
     cache layout `kv_shard`: serving is tensor-parallel over "model"
-    (model_axis_problems with `serving`: MoE blocks included), every other
-    axis of size 1. Each reason names ROADMAP queue A item 5."""
+    (model_axis_problems), every other axis of size 1. Each reason names
+    ROADMAP queue A item 5."""
     out = []
     for axis in ("pod", "data", "pipe"):
         if int(mesh_shape.get(axis, 1)) > 1:
             out.append(f"serving over a {axis!r} axis above 1 (the paged "
                        f"pool's blocks sharded over it) {_NOT_PORTED}")
     return out + model_axis_problems(cfg, int(mesh_shape.get("model", 1)),
-                                     kv_shard, serving=True)
+                                     kv_shard)
 
 
 def _check(problems, cfg, mesh_shape):
@@ -128,8 +124,9 @@ def check_training_mesh(cfg: ModelConfig, mesh_shape,
                         kv_shard: str = "heads"):
     """Raise NotImplementedError with the first reason the single and scan
     schedules cannot train on `mesh_shape`: model_axis_problems of its
-    model axis, MoE blocks among them (a model axis inside the pipeline is
-    validate_pipeline's refusal, the reference's)."""
+    model axis (MoE blocks train there, under expert parallelism or tensor
+    parallelism inside the experts; recurrent blocks do not; a model axis
+    inside the pipeline is validate_pipeline's refusal, the reference's)."""
     _check(model_axis_problems(cfg, int(mesh_shape.get("model", 1)),
                                kv_shard), cfg, mesh_shape)
 
@@ -367,7 +364,8 @@ def _scan_accum(grad_fn, n_micro: int):
         macc = None
         for i in range(n_micro):
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            (_, met), g = grad_fn(params, micro)
+            with MOE.site(micro=i):
+                (_, met), g = grad_fn(params, micro)
             with torch.no_grad():
                 tree_map(lambda a, g_: a.add_(g_.to(torch.float32)), gacc, g)
             del g
@@ -388,7 +386,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainStepConfig, *,
     """Returns train_step(params, opt_state, batch, step) -> (params,
     opt_state, metrics): params and opt_state are updated IN PLACE and
     returned; metrics maps "loss", "lb_loss", "z_loss", "grad_norm" and
-    "lr" to 0-d f32 tensors.
+    "lr" to 0-d f32 tensors, and for a MoE arch "router_grad_norm" (the
+    routers' part of the gradient norm before clipping, router_grad_norm).
 
     schedule: "auto" resolves from tcfg.microbatches and the mesh's pipe
     axis; or one of SCHEDULES explicitly. The chosen kind is exposed as
@@ -435,7 +434,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainStepConfig, *,
         spec_tree = None
 
     def train_step(params, opt_state, batch, step):
-        grads, metrics = compute_grads(params, batch)
+        with MOE.site(step=int(step)):
+            grads, metrics = compute_grads(params, batch)
+        metrics = dict(metrics)
+        if cfg.is_moe:
+            metrics["router_grad_norm"] = router_grad_norm(grads, spec_tree,
+                                                           mesh)
         if tcfg.compress_grads:
             dev = tree_leaves(params)[0].device
             gen = torch.Generator(device=dev).manual_seed(
@@ -447,13 +451,27 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainStepConfig, *,
                            tcfg.total_steps)
         params, opt_state = opt.apply_updates(tcfg.optimizer, params, grads,
                                               opt_state, lr, spec_tree, mesh)
-        metrics = dict(metrics)
         metrics["grad_norm"] = gnorm
         metrics["lr"] = lr
         return params, opt_state, metrics
 
     train_step.schedule = schedule
     return train_step
+
+
+def router_grad_norm(grads, spec_tree=None, mesh=None):
+    """The global norm of the MoE routers' gradients (every leaf named
+    "router"; on a mesh, shards under `spec_tree`). The router sits behind
+    the gates' gradient sum and the router gather's slice (models.moe), and
+    is a small part of the whole gradient norm, so this norm is the
+    sharper reading of both."""
+    keep = [i for i, (path, _) in enumerate(tree_paths(grads))
+            if path[-1] == "router"]
+    leaves = tree_leaves(grads)
+    specs = None if spec_tree is None else tree_leaves(spec_tree)
+    return opt.global_norm([leaves[i] for i in keep],
+                           None if specs is None else [specs[i]
+                                                       for i in keep], mesh)
 
 
 def _on_mesh(compute_grads, mesh, spec_tree, n_micro):

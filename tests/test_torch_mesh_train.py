@@ -197,11 +197,11 @@ def test_execution_plan_builds_over_a_live_world():
 
 
 def test_refusals():
-    """A model axis above 1 over MoE blocks is not ported (training on a
-    model axis is: tests/test_torch_tp_train.py); nccl never carries more
-    ranks than devices, or CPU ranks, and is refused before a process
-    starts."""
-    cfg = get_config("mixtral-8x7b").reduced()
+    """A model axis above 1 over recurrent blocks is not ported (training
+    on a model axis is, MoE blocks included: tests/test_torch_tp_train.py,
+    tests/test_torch_tp_moe_train.py); nccl never carries more ranks than
+    devices, or CPU ranks, and is refused before a process starts."""
+    cfg = get_config("xlstm-1.3b").reduced()
     mesh = LM.Mesh(axis_names=("data", "model"),
                    shape={"data": 1, "model": 2}, coords={"data": 0,
                                                           "model": 0},

@@ -2,11 +2,14 @@
 against the same collectives over gloo, the training CLI on
 data:2,pipe:2 (FSDP gathers, the 1F1B pipeline's sends, the gradient
 reductions, the mesh checkpoint saved and resumed) against the same runs
-over gloo, and the serve CLI tensor-parallel on model:2 (the f32 partial
+over gloo, the serve CLI tensor-parallel on model:2 (the f32 partial
 sums, the vocab gather, the retention's attention mass; a MoE arch's
-experts split over the ranks) against the same run over gloo. Needs two (the collectives, the serve CLI) or four (the
-training CLI) CUDA devices and skips without them; run on a four-card
-machine with
+experts split over the ranks) against the same run over gloo, and the
+training CLI on model:2 (the collectives' backward; a MoE arch's router
+gather and gates' gradient sum) against the same run over gloo. Needs
+two (the collectives, the serve CLI, training on model:2) or four
+(training on data:2,pipe:2) CUDA devices and skips without them; run on
+a four-card machine with
 
     PYTHONPATH=src python -m pytest -q -s --noconftest -m cuda \
         tests/test_torch_nccl.py
@@ -37,6 +40,14 @@ SERVE = ("--arch mistral-nemo-12b --reduced --depth 2 --kv paged --compact "
          "--chunk-prefill 16 --kv-block 4 --kv-quant int8 --kv-retain 2 "
          "--requests 6 --prompt-lens 8,20,40 --gen-lens 4,12 --device cuda "
          "--model-parallel 2")
+# training on model:2: h2o-danube-1.8b at 2 of its 24 layers, and reduced
+# mixtral-8x7b under the plan's expert parallelism (4 experts, 2 a rank)
+TRAIN_TP = ("--arch h2o-danube-1.8b --depth 2 --seq 512 --batch 2 "
+            "--steps 3 --log-every 1 --remat none --microbatches 1 "
+            "--optimizer adafactor --device cuda --mesh model:2")
+TRAIN_MOE = ("--arch mixtral-8x7b --reduced --depth 2 --seq 256 --batch 4 "
+             "--steps 3 --log-every 1 --remat none --microbatches 1 "
+             "--optimizer adamw_f32 --device cuda --mesh model:2")
 # reduced mixtral-8x7b on model:2 under the plan's expert parallelism
 SERVE_MOE = ("--arch mixtral-8x7b --reduced --depth 2 --kv paged --compact "
              "--chunk-prefill 16 --kv-block 4 --requests 6 --prompt-lens "
@@ -143,3 +154,37 @@ def test_nccl_moe_serving_on_model2_emits_gloos_tokens():
     assert [d for _, _, d in ranks_n] == [want[0]] * 2
     assert [st for _, st, _ in ranks_n] == ["0", "0"]
     assert all(int(st) > 0 for _, st, _ in ranks_g)
+
+
+@pytest.mark.parametrize("argv", [TRAIN_TP, TRAIN_MOE],
+                         ids=["h2o-danube-1.8b", "mixtral-8x7b-ep"])
+def test_nccl_training_on_model2_matches_gloo(argv):
+    """Three steps on model:2 over nccl, one card a rank, against the same
+    run over gloo: the losses and gradient norms (a MoE arch's routers'
+    too) within 1e-4 (the same sums, another transport), the ranks' shard
+    elements equal, nothing staged through the host on nccl."""
+    _cards(2)
+    runs = {}
+    for backend in ("gloo", "nccl"):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train",
+               *argv.split(), "--dist-backend", backend]
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                             text=True, timeout=TIMEOUT)
+        print(f"--- train over {backend}\n{out.stdout}")
+        assert out.returncode == 0, out.stderr[-4000:]
+        runs[backend] = out.stdout
+    steps = {b: [tuple(float(x) for x in m if x) for m in re.findall(
+        r"^step +\d+ loss=([0-9.]+) gnorm=([0-9.]+) lr=\S+"
+        r"(?: router_gnorm=([0-9.e+-]+))?$", t, re.M)]
+        for b, t in runs.items()}
+    assert len(steps["gloo"]) == len(steps["nccl"]) == 3
+    for got, want in zip(steps["nccl"], steps["gloo"]):
+        assert got == pytest.approx(want, rel=1e-4)
+    elements = {b: re.findall(r"^rank (\d): param elements ([0-9,]+);", t,
+                              re.M) for b, t in runs.items()}
+    assert elements["nccl"] == elements["gloo"] and len(elements["nccl"]) == 2
+    assert re.findall(r"staged through the host (\d+) B",
+                      runs["nccl"]) == ["0", "0"]
+    if "mixtral" in argv:
+        assert "ep=True" in runs["nccl"]

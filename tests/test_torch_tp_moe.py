@@ -414,8 +414,8 @@ def test_plan_serving_on_model2_equals_reference():
     """mixtral-8x7b on {data: 1, model: 2} as the serve CLI plans phase
     16(f)'s trace (pinned mesh, blocks of 16, compact, chunk 256, 30 GiB a
     device, the H100): the port's plan — class, block size, pool, the EP
-    the planner resolved — equals the reference's, and serving accepts the
-    mesh while training refuses it."""
+    the planner resolved — equals the reference's, and serving and
+    training both accept the mesh."""
     lens = [64 + 32, 256 + 24, 520 + 16, 1024 + 32, 64 + 16, 256 + 32]
 
     def plan(cfg, Shape, XP, SP, hw, **pin):
@@ -444,8 +444,7 @@ def test_plan_serving_on_model2_equals_reference():
     assert splan.execution.mesh_shape == {"data": 1, "model": 2, "pipe": 1}
     assert splan.kv_block == 16 and splan.capacity > 0
     assert SCH.serving_mesh_problems(cfg, {"data": 1, "model": 2}) == []
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        SCH.check_training_mesh(cfg, {"data": 1, "model": 2})
+    SCH.check_training_mesh(cfg, {"data": 1, "model": 2})
 
 
 # ---------------------------------------------------------------------------
